@@ -35,7 +35,7 @@ def main(out="planned_aggregation_out"):
     mesh = TexturedMesh(
         survey["mesh_file"], transform_filename=survey["cameras_file"]
     )
-    mesh.spatial_sort_faces()  # serpentine face order: compact fold windows
+    mesh.spatial_sort_faces()  # serpentine face order: compact tile id runs
     cameras = MetashapeCameraSet(
         survey["cameras_file"], survey["image_folder"]
     )

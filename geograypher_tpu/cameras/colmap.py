@@ -21,7 +21,6 @@ import typing
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 from geograypher_tpu.cameras.core import CameraSet
 from geograypher_tpu.constants import PATH_TYPE
@@ -36,6 +35,8 @@ class COLMAPCameraSet(CameraSet):
         image_folder: typing.Union[None, PATH_TYPE] = None,
         validate_images: bool = False,
     ):
+        import pandas as pd
+
         cameras_data = pd.read_csv(
             cameras_file,
             sep=" ",

@@ -104,7 +104,7 @@ def aggregate_images(
         )
     if n_aggregation_clusters is None and jax.device_count() > 1:
         # Multi-chip: shard views across the device mesh with host-side
-        # image prefetch (the TPU-native replacement for the reference's
+        # image prefetch (the replacement for the reference's
         # sequential chunked aggregation)
         from geograypher_tpu.parallel.pipeline import (
             aggregate_class_images_distributed,

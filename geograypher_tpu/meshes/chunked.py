@@ -195,7 +195,7 @@ def aggregate_class_images_chunked_distributed(
     """Chunked survey aggregation over a DEVICE MESH: each camera
     cluster's buffered sub-mesh runs through the production distributed
     pipeline (``parallel.pipeline.aggregate_class_images_distributed`` —
-    sharded views, fused scatter-free kernels, donated accumulators),
+    sharded views, census-bucketed caps, donated accumulators),
     and per-chunk results scatter-add back into full-mesh arrays via the
     chunk's original face ids — the composition of the reference's
     chunked processing (derived_meshes.py:222-317) with multi-chip view

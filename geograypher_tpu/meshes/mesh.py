@@ -1,6 +1,6 @@
 """TexturedMesh: the central multiview-projection engine.
 
-TPU-native counterpart of the reference's ``TexturedPhotogrammetryMesh``
+JAX counterpart of the reference's ``TexturedPhotogrammetryMesh``
 (/root/reference/geograypher/meshes/meshes.py:53-2449).  Same capabilities,
 different architecture: geometry and textures are numpy on the host
 (float64, ECEF internal frame exactly like the reference, meshes.py:211),
@@ -57,7 +57,7 @@ from geograypher_tpu.utils.vector import (
 
 logger = logging.getLogger(__name__)
 
-DEFAULT_RASTER_CONFIG = RasterConfig(caps=(512, 128, 64, 64), backend="pallas")
+DEFAULT_RASTER_CONFIG = RasterConfig(caps=(512, 128, 64, 64))
 
 
 class TexturedMesh:
@@ -207,9 +207,9 @@ class TexturedMesh:
         into their own trailing id blocks.
 
         Spatially coherent face ids make each raster tile's candidate list
-        a narrow id band, which the scatter-free aggregation
-        (ops/agg_tiled.py) exploits for compact face-block windows.  Raster
-        tiles are wide and short (128 x 8 px), so scanline order bounds
+        a narrow id band of contiguous runs, which block binning
+        (``RasterConfig.bin_block``) exploits.  Raster tiles are wide and
+        short (128 x 8 px), so scanline order bounds
         every tile's id band by ~(rows spanned) x (faces per row) —
         UNIFORMLY, unlike Hilbert/Morton orders whose bands explode for
         tiles straddling top-level curve boundaries (measured: mean band
@@ -291,13 +291,11 @@ class TexturedMesh:
     def _invalidate_geometry_caches(self) -> None:
         """Drop every geometry-derived device cache after a geometry edit
         (crop/sort/downsample): the (F, 3, 3) and (9, F) triangle caches
-        AND the capacity caches sized from them — stale SOA triangles or
-        fold/S capacities from the old face order yield silently wrong
-        aggregation counts."""
+        AND the census plans sized from them — stale SOA triangles or caps
+        from the old face order yield silently wrong aggregation counts."""
         self._tri_verts_cache.clear()
         for name in (
-            "_tri_soa_cache", "_fold_cap_cache", "_s_cap_cache",
-            "_pipeline_cfg_cache", "_agg_plan_cache",
+            "_tri_soa_cache", "_pipeline_cfg_cache", "_agg_plan_cache",
         ):
             cache = getattr(self, name, None)
             if cache is not None:
@@ -838,12 +836,12 @@ class TexturedMesh:
         The rasterizer itself never checks (it would force a device sync
         per view); capacities are a static contract.
         """
-        from geograypher_tpu.ops.rasterize import bin_all, setup_triangles
+        from geograypher_tpu.ops.rasterize import (
+            bin_triangles,
+            setup_triangles,
+        )
 
         config = config or self.raster_config
-        config = self._subtile_sized_config(
-            cameras, index, render_img_scale, config, False
-        )
         batch = cameras.get_camera_batch([index], image_scale=render_img_scale)
         tri = self.get_tri_verts_device(cameras)
         setup = setup_triangles(
@@ -852,12 +850,10 @@ class TexturedMesh:
             batch.image_width,
             batch.image_height,
         )
-        binned, sb = bin_all(
+        binned = bin_triangles(
             setup, config, batch.image_height, batch.image_width
         )
         overflow = int(binned.overflow)
-        if sb is not None:
-            overflow += int(np.asarray(sb.overflow))
         if overflow:
             logger.warning(
                 "rasterizer capacity overflow: %d candidate entries dropped "
@@ -874,16 +870,20 @@ class TexturedMesh:
         config: typing.Optional[RasterConfig] = None,
         save_to_cache: bool = False,
         cache_folder: typing.Optional[PATH_TYPE] = None,
-    ) -> jax.Array:
+        return_overflow: bool = False,
+    ):
         """One camera's pix2face as a DEVICE array (no host round trip);
         distortion warping runs on-device via NN remap (default: whenever
         the sensor is calibrated with distortion, like the reference).
-        With caching requested, delegates to the host-side cached path."""
+        With caching requested, delegates to the host-side cached path.
+        ``return_overflow`` also returns the () int32 count of candidates
+        the binning caps dropped (0 for maps read from the cache, which
+        keeps no such record)."""
         apply_distortion = self._resolve_distortion(
             cameras, index, apply_distortion
         )
         if save_to_cache:
-            return jnp.asarray(
+            p2f = jnp.asarray(
                 self.pix2face(
                     cameras,
                     [index],
@@ -894,21 +894,17 @@ class TexturedMesh:
                     cache_folder=cache_folder,
                 )[0]
             )
+            return (p2f, jnp.zeros((), jnp.int32)) if return_overflow else p2f
         config = config or self.raster_config
-        # census-size level-S capacities on first use (no-op without
-        # config.subtile); pix2face rasterizes the ideal pinhole view
-        # (distortion is a post-remap), so the census matches use_dist=False
-        config = self._subtile_sized_config(
-            cameras, index, render_img_scale, config, False
-        )
         batch = cameras.get_camera_batch([index], image_scale=render_img_scale)
         tri = self.get_tri_verts_device(cameras)
-        p2f = rasterize_triangles(
+        p2f, overflow = rasterize_triangles(
             transform_to_camera(tri, batch.world_to_cam[0]),
             batch.f[0],
             image_w=batch.image_width,
             image_h=batch.image_height,
             config=config,
+            return_overflow=True,
         )
         if apply_distortion:
             w2i = self._distortion_map_device(cameras, index, render_img_scale)
@@ -916,7 +912,7 @@ class TexturedMesh:
                 from geograypher_tpu.cameras.distortion import remap_image_jax
 
                 p2f = remap_image_jax(p2f, w2i, fill_value=-1)
-        return p2f
+        return (p2f, overflow) if return_overflow else p2f
 
     def pix2face(
         self,
@@ -1052,215 +1048,57 @@ class TexturedMesh:
             )
         return cache[key]
 
-    def _subtile_sized_config(
-        self,
-        cameras: CameraSet,
-        index: int,
-        scale: float,
-        config: RasterConfig,
-        use_dist: bool,
-    ) -> RasterConfig:
-        """``config`` with level-S chunk capacities census-sized from view
-        ``index`` when ``subtile`` is enabled without explicit caps
-        (cached per (scale, config)); no-op otherwise.  Undersizing for
-        other views of the survey surfaces as ``SubtileBinned.overflow``,
-        raised by every fused consumer."""
-        if (
-            config.subtile is None
-            or config.backend != "pallas"
-            or config.s_cap_chunks is not None
-        ):
-            return config
-        from geograypher_tpu.ops.rasterize import (
-            probe_subtile_census,
-            size_subtile_caps,
-        )
-
-        cache = getattr(self, "_s_cap_cache", None)
-        if cache is None:
-            cache = self._s_cap_cache = {}
-        key = (round(scale, 6), config)
-        if key not in cache:
-            batch = cameras.get_camera_batch([index], image_scale=scale)
-            s_tot, s_worst = probe_subtile_census(
-                self._tri_soa_device(cameras),
-                batch.world_to_cam[0],
-                batch.f[0],
-                jnp.asarray(batch.distortion[0], jnp.float32),
-                batch.cx[0],
-                batch.cy[0],
-                batch.image_width,
-                batch.image_height,
-                config,
-                use_dist,
-            )
-            cache[key] = size_subtile_caps(
-                config, int(np.asarray(s_tot)), int(np.asarray(s_worst))
-            )
-        return cache[key]
-
-    def _fold_sized_config(
-        self,
-        cameras: CameraSet,
-        index: int,
-        scale: float,
-        config: RasterConfig,
-        use_dist: bool,
-    ) -> RasterConfig:
-        """``config`` with ``fold_w_cap`` auto-sized from a probe of view
-        ``index`` (1.5x margin; cached per (scale, config)).  Later views
-        are covered by the runtime overflow guard in the fused chain."""
-        import dataclasses
-
-        from geograypher_tpu.ops.rasterize import probe_fold_window
-
-        config = self._subtile_sized_config(
-            cameras, index, scale, config, use_dist
-        )
-        cache = getattr(self, "_fold_cap_cache", None)
-        if cache is None:
-            cache = self._fold_cap_cache = {}
-        key = (round(scale, 6), config)
-        if key not in cache:
-            batch = cameras.get_camera_batch([index], image_scale=scale)
-            win, occ = probe_fold_window(
-                self._tri_soa_device(cameras),
-                batch.world_to_cam[0],
-                batch.f[0],
-                jnp.asarray(batch.distortion[0], jnp.float32),
-                batch.cx[0],
-                batch.cy[0],
-                batch.image_width,
-                batch.image_height,
-                config,
-                self._face_bucket(self.n_faces),
-                use_dist,
-            )
-            # entry compaction (RasterConfig.entry_caps) keeps the dense
-            # census-cap count buffers from living past each view's
-            # raster; undersizing is caught by the fused chain's
-            # overflow output (raised below in project_images).  2x + 64
-            # margins: only view ``index`` is probed and other views of
-            # the set can need more (window padding is nearly free)
-            entry_caps = tuple(
-                8 * max(1, -(-(int(v) * 2 + 64) // 8))
-                for v in np.asarray(occ)
-            )
-            # per-level window caps: the L2+global fold's demand is
-            # structurally larger than L0's on meshes with global-level
-            # candidates (agg_tiled.level_fold_windows)
-            cache[key] = dataclasses.replace(
-                config,
-                fold_w_cap=tuple(
-                    8 * ((int(v) * 2 + 64 + 7) // 8)
-                    for v in np.asarray(win)
-                ),
-                entry_caps=entry_caps,
-            )
-        return cache[key]
-
     def project_images(
         self,
         cameras: CameraSet,
         batch_size: int = 1,
         aggregate_img_scale: float = 1.0,
         check_null_image: bool = False,
-        integrity_check: bool = True,
         **pix2face_kwargs,
     ):
         """Generator of per-view per-face (mean values, pixel counts)
         (reference meshes.py:1911-1969; see ops/aggregate.py for the
         deliberate last-pixel-wins -> per-face-mean semantics fix).
 
-        On the pallas backend, one-hot segmentor images run through the
-        FUSED scatter-free chain (``ops.rasterize.fused_view_class_counts``
-        — the raster kernel emits class counts in-kernel, face-block folds
-        densify them), so no XLA scatter ever consumes a Mosaic output
-        (docs/DESIGN.md corruption doctrine).  Lens distortion is then
-        applied natively in the rasterizer (vertices warped into the
-        sensor's distorted pixel space) rather than by the reference's NN
-        remap of the rendered map (meshes.py:1805-1821) — sub-pixel
-        equivalent at survey triangle sizes.  Continuous/soft images keep
-        the general per-channel mean path.  Fold-window overflow or a
-        corrupted first view raise instead of returning wrong counts.
+        One-hot segmentor images are counted per class with one
+        segment-sum over (face, class) ids; continuous/soft images keep the
+        general per-channel mean path.  Both rasterize through
+        :meth:`_pix2face_device`, so lens distortion is applied by the
+        reference's NN remap of the rendered map (meshes.py:1805-1821), the
+        same geometry ``render_flat`` produces.  Binning-cap overflow raises
+        (after the last view) instead of returning wrong counts.
         """
-        from geograypher_tpu.ops.rasterize import fused_view_class_counts
+        from geograypher_tpu.ops.aggregate import project_image_class_counts
 
-        config = pix2face_kwargs.get("config") or self.raster_config
-        apply_distortion = pix2face_kwargs.get("apply_distortion")
-        use_fused = config.backend == "pallas"
+        n_bucket = self._face_bucket(self.n_faces)
         overflow_acc = None
-        first_fused_checked = False
         for i in range(len(cameras)):
             img = cameras.get_image_by_index(i, aggregate_img_scale)
             if check_null_image and not np.any(np.isfinite(img)):
                 yield None
                 continue
-            cls = self._as_class_image(img) if use_fused else None
+            p2f, over = self._pix2face_device(
+                cameras, i, render_img_scale=aggregate_img_scale,
+                return_overflow=True, **pix2face_kwargs,
+            )
+            overflow_acc = (
+                over if overflow_acc is None
+                else jnp.maximum(overflow_acc, over)
+            )
+            cls = self._as_class_image(img)
             if cls is not None:
-                distort_i = self._resolve_distortion(
-                    cameras, i, apply_distortion
-                )
-                sized = self._fold_sized_config(
-                    cameras, i, aggregate_img_scale, config, distort_i
-                )
-                batch = cameras.get_camera_batch(
-                    [i], image_scale=aggregate_img_scale
-                )
-                n_classes = img.shape[-1]
-                counts, over, ncand = fused_view_class_counts(
-                    self._tri_soa_device(cameras),
-                    batch.world_to_cam[0],
-                    batch.f[0],
-                    jnp.asarray(batch.distortion[0], jnp.float32),
-                    batch.cx[0],
-                    batch.cy[0],
-                    jnp.asarray(cls),
-                    batch.image_width,
-                    batch.image_height,
-                    sized,
-                    self._face_bucket(self.n_faces),
-                    n_classes,
-                    distort_i,
-                )
-                overflow_acc = (
-                    over if overflow_acc is None
-                    else jnp.maximum(overflow_acc, over)
-                )
-                if integrity_check and not first_fused_checked:
-                    first_fused_checked = True
-                    labeled = int((cls >= 0).sum())
-                    got = float(np.asarray(jnp.sum(counts)))
-                    if (
-                        got == 0.0
-                        and labeled > 0.01 * cls.size
-                        and int(np.asarray(ncand)) > 0
-                    ):
-                        raise RuntimeError(
-                            "aggregation integrity check failed: view "
-                            f"{i} has {labeled} labeled pixels and a "
-                            "non-empty rasterization, but the fused "
-                            "kernel chain produced zero counts — the "
-                            "runtime is corrupting Mosaic outputs "
-                            "(docs/DESIGN.md); pass "
-                            "integrity_check=False only if this scene "
-                            "legitimately has no labeled mesh pixels"
-                        )
-                counts = counts[: self.n_faces]
+                counts = project_image_class_counts(
+                    p2f, jnp.asarray(cls), n_faces=n_bucket,
+                    n_classes=img.shape[-1],
+                )[: self.n_faces]
                 face_total = jnp.sum(counts, axis=1)
                 yield counts, jnp.broadcast_to(
                     face_total[:, None], counts.shape
                 )
                 continue
-            p2f = self._pix2face_device(
-                cameras, i, render_img_scale=aggregate_img_scale,
-                **pix2face_kwargs,
-            )
             # bucketized segment count shares the jit across mesh chunks
             sums, counts = project_image_to_faces(
-                p2f,
-                jnp.asarray(img, jnp.float32),
-                self._face_bucket(self.n_faces),
+                p2f, jnp.asarray(img, jnp.float32), n_bucket
             )
             # device arrays: downstream accumulation stays on device; callers
             # wanting numpy can np.asarray (tiny (F, C) transfers)
@@ -1269,10 +1107,9 @@ class TexturedMesh:
             worst = int(np.asarray(overflow_acc))
             if worst:
                 raise RuntimeError(
-                    f"fold capacity overflow: a view needed {worst} "
-                    "entries beyond the auto-sized window or entry-cap "
-                    "capacity; counts were dropped. Pass a RasterConfig "
-                    "with a larger fold_w_cap / entry_caps."
+                    f"rasterizer capacity overflow: a view dropped {worst} "
+                    "candidate entries; counts were lost. Pass a "
+                    "RasterConfig with larger caps (check_raster_capacity)."
                 )
 
     # auto-route aggregate_projected_images to the planned path only when
@@ -1280,9 +1117,19 @@ class TexturedMesh:
     # (census ~18 ms/view + per-bucket program compiles): total label
     # pixels across views.  20 4K views = 166M; tiny test scenes never hit.
     _PLANNED_MIN_PIXELS = 32 * 1024 * 1024
-    # device budget for the planner's int32 label stack (HBM is ~16 GB on
-    # one v5e chip and the mesh accumulators need headroom)
+    # device budget for the planner's int32 label stack when the device
+    # reports no memory limit (the CPU); see _planned_label_budget
     _PLANNED_LABEL_BUDGET = 4 * 1024**3
+
+    @classmethod
+    def _planned_label_budget(cls) -> int:
+        """Bytes of int32 label stack the planned route accepts: a quarter
+        of the device's memory limit (the per-view resolve buffers and the
+        mesh accumulators need the rest), or ``_PLANNED_LABEL_BUDGET``
+        where the device reports none."""
+        stats = jax.devices()[0].memory_stats() or {}
+        limit = stats.get("bytes_limit")
+        return int(limit) // 4 if limit else cls._PLANNED_LABEL_BUDGET
 
     def aggregate_projected_images(
         self,
@@ -1298,7 +1145,7 @@ class TexturedMesh:
         ``use_planned``: route through the census-bucketed planner
         (:meth:`aggregate_projected_images_planned` — the flagship rate
         with identical view-weighted semantics) when the views are exact
-        one-hot class stacks on the pallas backend.  ``"auto"`` (default)
+        one-hot class stacks.  ``"auto"`` (default)
         routes surveys past ``_PLANNED_MIN_PIXELS`` total label pixels;
         ``True`` forces it (raises with the reason when impossible);
         ``False`` keeps the per-view streaming loop.
@@ -1354,12 +1201,9 @@ class TexturedMesh:
         the fallback reason logged (raised when ``strict``)."""
         reason = None
         extra = set(kwargs) - {"config", "apply_distortion"}
-        config = kwargs.get("config") or self.raster_config
         batch = None
         if extra:
             reason = f"unsupported project_images kwargs {sorted(extra)}"
-        elif config.backend != "pallas":
-            reason = "planned path requires the pallas backend"
         else:
             batch = cameras.get_camera_batch(
                 image_scale=aggregate_img_scale
@@ -1370,7 +1214,7 @@ class TexturedMesh:
                     f"survey too small to amortize planning "
                     f"({px} label pixels < {self._PLANNED_MIN_PIXELS})"
                 )
-            elif px * 4 > self._PLANNED_LABEL_BUDGET:
+            elif px * 4 > self._planned_label_budget():
                 reason = (
                     f"label stack ({px * 4 / 1e9:.1f} GB int32) exceeds "
                     "the device budget; streaming instead"
@@ -1491,10 +1335,6 @@ class TexturedMesh:
         from geograypher_tpu.parallel import planner as _planner
 
         config = config or self.raster_config
-        if config.backend != "pallas":
-            raise ValueError(
-                "the planned aggregation path requires the pallas backend"
-            )
         batch = cameras.get_camera_batch(image_scale=aggregate_img_scale)
         h, w = batch.image_height, batch.image_width
         n = len(cameras)
@@ -1554,8 +1394,8 @@ class TexturedMesh:
         """Census-bucketed VIEW-WEIGHTED aggregation — the reference's
         ``aggregate_projected_images`` semantics (meshes.py:1971-2052:
         per view, per-face class distribution; averaged over the views
-        seeing the face) at the planned flagship rate.  Each view gets
-        its own fold + normalization inside the bucket's grouped program
+        seeing the face) at the planned flagship rate.  Each view's
+        counts are normalized per face inside the bucket's grouped program
         (``parallel/planner.py`` weighted mode).
 
         Returns ``(average_projections (n_faces, n_classes) with NaN on
@@ -1940,10 +1780,10 @@ class TexturedMesh:
         **render_kwargs,
     ):
         """Render per-camera label masks to disk (reference
-        meshes.py:2215-2364)."""
-        import cv2
-
+        meshes.py:2215-2364).  Only PNG-style outputs and composites need
+        the optional ``cv2``; ``.npy`` output does not."""
         from geograypher_tpu.utils.files import ensure_containing_folder
+        from geograypher_tpu.utils.image import resize_nearest
 
         output_folder = Path(output_folder)
         for img, cam in self.render_flat(
@@ -1959,14 +1799,14 @@ class TexturedMesh:
             data = img[..., 0] if img.shape[-1] == 1 else img
             if save_native_resolution and render_image_scale != 1.0:
                 sensor = cam.sensors[cam.sensor_IDs[0]]
-                data = cv2.resize(
-                    data,
-                    (sensor["image_width"], sensor["image_height"]),
-                    interpolation=cv2.INTER_NEAREST,
+                data = resize_nearest(
+                    data, sensor["image_height"], sensor["image_width"]
                 )
             if output_extension == ".npy":
                 np.save(out_path, data)
                 continue
+            import cv2
+
             if cast_to_uint8:
                 out = np.where(np.isfinite(data), data, 255.0)
                 out = np.clip(out, 0, 255).astype(np.uint8)
@@ -2062,7 +1902,7 @@ class TexturedMesh:
 
         The headless counterpart of the reference's interactive VTK
         window (entrypoints/visualize.py:13-90, meshes.py:2054): instead
-        of opening a window on the TPU host, export one WebGL HTML file
+        of opening a window on a headless host, export one WebGL HTML file
         to open in any browser (see utils/html_viewer.py).
         """
         from geograypher_tpu.utils.html_viewer import (

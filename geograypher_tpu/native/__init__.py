@@ -83,9 +83,8 @@ def class_counts_host(
     """Threaded host-side per-face class-count scatter.
 
     Each thread owns a face-id RANGE and scans all pixels (no atomics), so
-    speedup requires real cores: ~217 ms single-core for an 8M-pixel view,
-    scaling toward the TPU XLA scatter floor (~89 ms) with ~4+ cores — for
-    flows where the pix2face map is already host-resident (cache hits,
+    speedup requires real cores: ~217 ms single-core for an 8M-pixel view
+    — for flows where the pix2face map is already host-resident (cache hits,
     post-processing).  ``n_threads=0`` uses the machine's core count.
     Returns (n_faces, n_classes) int32, or None without the native lib.
     """

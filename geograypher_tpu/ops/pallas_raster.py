@@ -1,877 +1,130 @@
-"""Pallas TPU kernel for the per-tile z-buffer resolve.
+"""Pallas kernel (Triton route) for the per-tile z-buffer resolve.
 
-Replaces ``ops.rasterize._raster_tiles_xla`` on TPU.  Design (see
-ops/rasterize.py header for the full pipeline):
+The GPU counterpart of ``ops.rasterize._raster_tiles_xla``.  One program
+per level-0 tile (``tile_h x tile_w`` pixels):
 
-* Grid = (tile_rows, tile_cols / pair) over (8 x 128)-pixel tiles — the
-  native VPU register shape — with ``pair`` (up to 8) adjacent L0 tiles
-  resolved per grid step.  The kernel is grid-STEP-overhead bound at
-  survey scale (measured ~5 us/step of stepping + fixed DMA issue cost
-  with near-empty compute), so packing tiles per step is the single
-  biggest kernel lever.  Candidate slabs arrive in VMEM via BlockSpec
-  index maps; ancestor-level slabs are stored on (row, col) parent grids
-  padded so a step's ``pair`` tiles map to a statically-indexable window
-  of parents (no duplication in HBM, and Pallas skips the re-DMA when
-  consecutive grid steps map to the same block).
-* Each candidate contributes affine planes over the image — 3 edge planes,
-  the 1/z depth plane, and constant face-id planes — so plane evaluation
-  AND winner identification are MXU contractions against a (3, pixels)
-  coordinate matrix.  No gathers or transposes appear in the kernel.
-* Per-tile candidate counts live in SMEM (scalar prefetch) and bound a
-  dynamic ``fori_loop`` over 128-candidate chunks, so compute scales with
-  actual tile occupancy rather than the static capacity.
+* it reads its own candidate count at each level (L0 tile, the L1 and L2
+  parents, the global list) and walks exactly that many candidate faces
+  in a ``fori_loop`` — no scan up to the static capacity;
+* per candidate it loads the face's 12 plane coefficients as scalars and
+  evaluates the 3 edge planes and the 1/z plane for every pixel of the
+  tile as float32 FMAs (K=3 has no use for tensor cores);
+* ``best_w`` / ``best_face`` for the tile's pixels stay in registers, and
+  the tile writes 4 bytes per pixel once.
 
-Precision strategy (v5e MXU is bf16-native; f32 "HIGHEST" costs 6 passes):
+The XLA reference materializes an ``(n_tiles, pixels, chunk, 4)`` float32
+intermediate per scan step instead; this kernel moves only the candidate
+ids, the plane rows and the output.
 
-* **Level 0 (the bulk)**: plane constants are shifted to TILE-LOCAL
-  coordinates in prep, making the pixel matrix exactly bf16-representable
-  (x in [0.5, 127.5] on a 0.5 grid), and each coefficient is split into a
-  bf16 hi/lo pair.  Two DEFAULT-precision dots then reproduce ~f32
-  accuracy (error ~1e-3 px at tile scale) at 1/3 the MXU cost.  Face ids
-  ride as three exact base-256 digit planes (ids to 16.7M).
-* **Levels 1-3 (few candidates)**: parent-tile-local coordinates exceed
-  bf16's exact range, so these keep the 5-plane HIGHEST path.
-
-Depth resolve: within a chunk, maximize w = 1/z and break ties toward the
-lowest face id (candidates are id-sorted by the binning sort); across
-chunks/levels, strictly-greater keeps the earlier winner — matching the
-XLA reference kernel, which tests assert against.
-
-Fused class counting (``class_image``): after the z-resolve the winner row
-is turned into an exact (npix, 1) COLUMN by one tiny digit-plane dot (the
-MXU performs the lane->sublane transpose), and each level's candidate ids
-— read back from the slab id planes already in VMEM — are matched by one
-broadcast equality compare per 128-candidate chunk; a one-hot class matmul
-contracts the match into (class, slot) counts.  This replaces the earlier
-6-row difference-dot scheme (one fewer MXU pass per chunk and no HIGHEST
-dots on the ancestor levels).
+Tie rule (identical to the reference): candidates are visited in level
+order L0, L1, L2, global and, within a level, in ascending unit id (the
+binning sort's order); a candidate replaces the winner only when its depth
+plane is STRICTLY greater, so exact depth ties keep the earliest candidate
+— the lowest face id within a level.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-NEG_INF = -3.0e38
-CHUNK = 128  # candidates per inner step; also the slab padding quantum
+from jax.experimental.pallas import triton as plgpu
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+def _make_kernel(th, tw, ntx0, grids, scales, bb):
+    (nty1, ntx1), (nty2, ntx2) = grids[1], grids[2]
+    s1, s2 = scales[1], scales[2]
+    npix = th * tw
 
+    def kernel(cnt0, cnt1, cnt2, cnt3, cand0, cand1, cand2, cand3, planes,
+               out_ref):
+        t = pl.program_id(0)
+        # lax.div / lax.rem: operands are non-negative, so truncation is
+        # floor division without jnp's sign fix-ups
+        div, rem = jax.lax.div, jax.lax.rem
+        ty = div(t, ntx0)
+        tx = rem(t, ntx0)
+        pix = jax.lax.broadcasted_iota(jnp.int32, (npix,), 0)
+        px = (tx * tw + rem(pix, tw)).astype(jnp.float32) + 0.5
+        py = (ty * th + div(pix, tw)).astype(jnp.float32) + 0.5
 
-def _split_hi_lo(x: jax.Array):
-    hi = x.astype(jnp.bfloat16).astype(jnp.float32)
-    lo = (x - hi).astype(jnp.bfloat16).astype(jnp.float32)
-    return hi, lo
-
-
-def _prep_level_slab(
-    cand: jax.Array,
-    planes_ext: jax.Array,
-    n_units: int,
-    tile_origin: Optional[Tuple[jax.Array, jax.Array]] = None,
-    block: int = 1,
-):
-    """(T, C) candidate-unit ids -> (slab, (T, 1) face-slot counts).
-
-    With ``tile_origin`` (level 0): tile-local hi/lo layout
-    (T, 6, nch*5*CHUNK), plane blocks [e0|e1|e2|w|d] per chunk, rows
-    0-2 = bf16-hi coefficients (digit block: the three base-256 id digit
-    rows), rows 3-5 = bf16-lo (digit block: zero).
-    Without: global-coordinate 5-plane f32 layout (T, 3, nch*5*CHUNK),
-    blocks [e0|e1|e2|w|id].
-    Empty slots point at the sentinel plane row (coverage-false).
-
-    With ``block > 1`` each candidate unit is a BLOCK of ``block``
-    consecutive faces: ``planes_ext`` holds (n_units + 1, block*12)
-    block rows (sentinel last), so ONE gathered row covers ``block``
-    face slots — the row gather shrinks ``block``-fold.  Face ids are
-    reconstructed arithmetically (unit*block + offset); ride-along
-    invalid faces carry sentinel planes from setup and stay inert.
-    """
-    t, c = cand.shape
-    upc = CHUNK // block  # candidate units per 128-face-slot chunk
-    cp_u = _round_up(max(c, upc), upc)
-    if cp_u != c:
-        cand = jnp.pad(cand, ((0, 0), (0, cp_u - c)), constant_values=-1)
-    safe_ids = jnp.where(cand >= 0, cand, n_units)
-    # (T, Cp_u, 12, block): planes_ext rows are COEFFICIENT-MAJOR block
-    # rows ([coef0 x block | coef1 x block | ...]), so every per-coef
-    # slice below is CANDIDATE-MINOR — the slab assembles from (T, nch,
-    # CHUNK)-shaped pieces with plain stacks, no rank-5 transposes.  (The
-    # earlier plane-major layout needed a full relayout transpose whose
-    # chain materialized ~13 GB of rank-5 intermediates per 4K view.)
-    p2 = planes_ext[safe_ids].reshape(t, cp_u, 12, block)
-    counts = (
-        jnp.sum(cand >= 0, axis=1, dtype=jnp.int32) * block
-    ).reshape(t, 1)
-    cp = cp_u * block
-    nch = cp // CHUNK
-
-    def coef(k):  # (T, nch, CHUNK), candidate-minor
-        return p2[:, :, k, :].reshape(t, nch, CHUNK)
-
-    if block > 1:
-        offs = jnp.arange(block, dtype=jnp.int32)
-        cand = jnp.where(
-            (cand >= 0)[..., None], cand[..., None] * block + offs, -1
-        ).reshape(t, cp)
-    cand_ch = cand.reshape(t, nch, CHUNK)
-    zeros = jnp.zeros((t, nch, CHUNK), jnp.float32)
-
-    if tile_origin is None:
-        # rows [a | b | c] per (chunk, plane) with the 5th plane = the id
-        # plane [0, 0, id]; empty slots carry id -2: they never win the
-        # resolve (their edge planes are the coverage-false sentinel),
-        # and -2 can never equal a face id OR the background value (-1)
-        # in the fused class-count match.
-        idv = jnp.where(cand_ch >= 0, cand_ch, -2).astype(jnp.float32)
-        rows = []
-        for r in range(3):
-            pieces = [coef(3 * p + r) for p in range(4)]
-            pieces.append(idv if r == 2 else zeros)
-            rows.append(jnp.stack(pieces, axis=2))  # (T, nch, 5, CHUNK)
-        slab = jnp.stack(rows, axis=1).reshape(t, 3, nch * 5 * CHUNK)
-        return slab, counts
-
-    x0, y0 = tile_origin  # (T,) pixel coords of each tile's corner
-    # empty slots get digit id 2^24-1: never wins the resolve (sentinel
-    # edge planes) and never matches a real face or the -1 background in
-    # the fused class-count match
-    ids = jnp.where(cand_ch >= 0, cand_ch, (1 << 24) - 1)
-    digs = (
-        (ids % 256).astype(jnp.float32),
-        ((ids // 256) % 256).astype(jnp.float32),
-        (ids // 65536).astype(jnp.float32),
-    )
-    # 4 evaluated planes (hi/lo pairs) + one DIGIT block [d0 d1 d2 0 0 0]:
-    # face-id digits are constant over pixels, so they never enter the
-    # pixel dot — the kernel reads them straight off the slab and
-    # transposes via a tiny exact digit dot.  Rows 0-2 = bf16-hi of
-    # (a, b, c_local), rows 3-5 = bf16-lo.
-    x0b = x0.reshape(t, 1, 1)
-    y0b = y0.reshape(t, 1, 1)
-    his, los = [], []
-    for p in range(4):
-        a, b, cc = coef(3 * p), coef(3 * p + 1), coef(3 * p + 2)
-        c_local = a * x0b + b * y0b + cc
-        hi3, lo3 = [], []
-        for v in (a, b, c_local):
-            h, l = _split_hi_lo(v)
-            hi3.append(h)
-            lo3.append(l)
-        his.append(hi3)
-        los.append(lo3)
-    rows = []
-    for r in range(6):
-        half, j = (his, r) if r < 3 else (los, r - 3)
-        pieces = [half[p][j] for p in range(4)]
-        pieces.append(digs[r] if r < 3 else zeros)
-        rows.append(jnp.stack(pieces, axis=2))  # (T, nch, 5, CHUNK)
-    slab = jnp.stack(rows, axis=1).reshape(t, 6, nch * 5 * CHUNK)
-    return slab, counts
-
-
-def _row_image_spec(th: int, pair: int, tw: int, idx=None):
-    """The shared (1, th, pair*tw)/(i, 0, j) row-image tile BlockSpec —
-    the ONE layout s_init planes, the class image, and the pix2face
-    output all ride (changing it in one place keeps them in sync).
-    ``idx`` overrides the index map (occupied-pair compaction)."""
-    return pl.BlockSpec(
-        (1, th, pair * tw),
-        idx if idx is not None else (lambda i, j, *_: (i, 0, j)),
-        memory_space=pltpu.VMEM,
-    )
-
-
-def _make_kernel(
-    tile_h: int,
-    tile_w: int,
-    scales,
-    pair: int,
-    ntx0p: int,
-    ntx1p: int,
-    ntx2p: int,
-    kp: int = 0,
-    caps: Optional[Tuple[int, int, int, int]] = None,
-    emit_p2f: bool = True,
-    s_init: bool = False,
-    occ: bool = False,
-    l0_group: int = 2,
-):
-    """Kernel over grid (tile_rows, tile_cols / pair): each step resolves
-    ``pair`` adjacent L0 tiles from one slab block.  ``pair`` is chosen so
-    a step's tiles span a whole number of L1/L2 parents (or a fraction of
-    one), making every ancestor-slab index STATIC within the step.
-
-    The kernel resolves THREE levels: L0 tiles, L1 parents, and a merged
-    L2 level whose candidate lists carry the global (whole-image) list
-    appended by the caller — one fewer slab buffer, resolve loop, count
-    section and fold launch than a 4-level form.
-
-    With ``kp > 0`` the kernel additionally emits per-tile per-level
-    (class, slot) pixel counts (the fused form of
-    agg_tiled.tile_class_counts) in ONE merged (pair, kp, sum(caps))
-    output, columns [L0 | L1 | L2+global]: the winner row becomes an
-    exact column via a digit-plane dot, each level's candidate ids are
-    matched by one broadcast compare per chunk, and one-hot class rows
-    contract the matches into counts — see module docstring."""
-    npix = tile_h * tile_w
-    s1_, s2_ = scales[1], scales[2]
-    npx_pairs = ntx0p // pair
-
-    def kernel(c0, c1, c2, *refs):
-        refs = list(refs)
-        if occ:
-            pids_ref = refs.pop(0)
-        s0, s1, s2 = refs[:3]
-        refs = refs[3:]
-        if s_init:
-            # level-S carry init: image-layout (best_w, best_id) planes
-            # from the sub-tile raster (ops/subtile.s_raster_pallas)
-            sw_ref, sid_ref = refs[:2]
-            refs = refs[2:]
-        if kp and emit_p2f:
-            (cls_ref, out_ref, om_ref) = refs
-        elif kp:
-            (cls_ref, om_ref) = refs
-            out_ref = None
-        else:
-            (out_ref,) = refs
-        if occ:
-            # compacted grid: one step per OCCUPIED pair, the pair id
-            # scalar-prefetched (padding repeats the last real id — a
-            # benign identical recompute)
-            pid = pids_ref[pl.program_id(0)]
-            ty = pid // npx_pairs
-            txp = pid % npx_pairs
-        else:
-            ty = pl.program_id(0)
-            txp = pl.program_id(1)  # pair index
-
-        pix = jax.lax.broadcasted_iota(jnp.int32, (1, npix), 1)
-        xs_local = (pix % tile_w).astype(jnp.float32) + 0.5
-        ys_local = (pix // tile_w).astype(jnp.float32) + 0.5
-        ones = jnp.ones_like(xs_local)
-        pmat_local = jnp.concatenate([xs_local, ys_local, ones], axis=0)
-        # doubled pixel matrix: one K=6 dot against the slab's stacked
-        # [hi(3); lo(3)] coefficient rows computes hi@p + lo@p exactly
-        # (all operand values are bf16-representable) in HALF the MXU
-        # passes of two K=3 dots, with no (rows, npix) f32 add pass
-        pmat_local2 = jnp.concatenate([pmat_local, pmat_local], axis=0)
-
-        def resolve(e0, e1, e2, wv, idv, carry):
-            best_w, best_id = carry
-            emin = jnp.minimum(jnp.minimum(e0, e1), e2)
-            wm = jnp.where(emin >= 0, wv, NEG_INF)
-            cmax = jnp.max(wm, axis=0, keepdims=True)
-            neg_id = jnp.where(wm >= cmax, -idv, NEG_INF)
-            cid = -jnp.max(neg_id, axis=0, keepdims=True)
-            upd = cmax > best_w
-            return (
-                jnp.where(upd, cmax, best_w),
-                jnp.where(upd, cid, best_id),
-            )
-
-        # exact lane->sublane transpose of the base-256 id digit rows:
-        # digits <= 255 and the weights are bf16-exact, products < 2^24,
-        # and each output element is a 3-term exact f32 sum (built from an
-        # iota: pallas kernels cannot capture array constants)
-        _ri = jax.lax.broadcasted_iota(jnp.int32, (3, 1), 0)
-        w256 = jnp.where(
-            _ri == 0, 1.0, jnp.where(_ri == 1, 256.0, 65536.0)
-        ).astype(jnp.bfloat16)
-
-        def resolve0(vals, base, idcol, carry):
-            """Level-0 resolve on a 4-plane row block starting at ``base``;
-            ``idcol`` is the chunk's (CHUNK, 1) face-id column (broadcast
-            over pixels)."""
-            e0 = vals[base + 0 * CHUNK : base + 1 * CHUNK]
-            e1 = vals[base + 1 * CHUNK : base + 2 * CHUNK]
-            e2 = vals[base + 2 * CHUNK : base + 3 * CHUNK]
-            wv = vals[base + 3 * CHUNK : base + 4 * CHUNK]
-            return resolve(e0, e1, e2, wv, idcol, carry)
-
-        def level0_group(slab_ref, cnt_ref, sub_ids, glob_ids, carries):
-            """A group of sub-tiles shares one wide hi/lo dot per chunk.
-
-            The loop runs to the max sub-tile chunk count; a lighter
-            sub-tile's surplus slots hold sentinel planes (coverage-false),
-            so no masking is needed.
-            """
-            cnt = cnt_ref[glob_ids[0]]
-            for t in glob_ids[1:]:
-                cnt = jnp.maximum(cnt, cnt_ref[t])
-            n_chunks = (cnt + CHUNK - 1) // CHUNK
-            g = len(sub_ids)
-
-            def chunk(ci, carries):
-                off = pl.multiple_of(ci * (5 * CHUNK), 5 * CHUNK)
-                blocks = jnp.concatenate(
-                    [
-                        slab_ref[s, :, pl.ds(off, 4 * CHUNK)]  # (6, 512)
-                        for s in sub_ids
-                    ],
-                    axis=1,
+        def walk(cand_ref, row, n_units, carry):
+            def body(s, carry):
+                best_w, best_f = carry
+                unit = cand_ref[row, div(s, bb)]
+                face = unit * bb + rem(s, bb)
+                c = [planes[face, k] for k in range(12)]
+                e0 = c[0] * px + c[1] * py + c[2]
+                e1 = c[3] * px + c[4] * py + c[5]
+                e2 = c[6] * px + c[7] * py + c[8]
+                wv = c[9] * px + c[10] * py + c[11]
+                upd = (
+                    (jnp.minimum(jnp.minimum(e0, e1), e2) >= 0.0)
+                    & (wv > best_w)
                 )
-                idcols = [
-                    jax.lax.dot_general(
-                        slab_ref[
-                            s, 0:3, pl.ds(off + 4 * CHUNK, CHUNK)
-                        ].astype(jnp.bfloat16),
-                        w256,
-                        (((0,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                    )  # (CHUNK, 1) exact f32 ids
-                    for s in sub_ids
-                ]
-                vals = jax.lax.dot_general(
-                    blocks, pmat_local2, (((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )  # (g*4*CHUNK, npix) = hi@p + lo@p, one K=6 dot
-                return tuple(
-                    resolve0(vals, s * 4 * CHUNK, idcols[s], carries[s])
-                    for s in range(g)
-                )
-
-            return jax.lax.fori_loop(0, n_chunks, chunk, carries)
-
-        def level(read_block, pmat_global, cnt, carry):
-            """Ancestor resolve; ``read_block(off)`` yields the (3, 640)
-            5-plane block at chunk offset ``off``."""
-            n_chunks = (cnt + CHUNK - 1) // CHUNK
-
-            def chunk(ci, carry):
-                off = pl.multiple_of(ci * (5 * CHUNK), 5 * CHUNK)
-                block = read_block(off)
-                vals = jax.lax.dot_general(
-                    block,
-                    pmat_global,
-                    (((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST,
-                )  # (5*CHUNK, npix)
-                return resolve(
-                    vals[0 * CHUNK : 1 * CHUNK],
-                    vals[1 * CHUNK : 2 * CHUNK],
-                    vals[2 * CHUNK : 3 * CHUNK],
-                    vals[3 * CHUNK : 4 * CHUNK],
-                    vals[4 * CHUNK : 5 * CHUNK],
-                    carry,
-                )
-
-            return jax.lax.fori_loop(0, n_chunks, chunk, carry)
-
-        if s_init:
-            # start from the sub-tile raster's winners; L0+ candidates
-            # beat them only strictly (S/L0 id blocks are disjoint, so
-            # exact w ties across the boundary are knife-edge only)
-            def init_for(s):
                 return (
-                    sw_ref[0, :, s * tile_w:(s + 1) * tile_w].reshape(
-                        1, npix
-                    ),
-                    sid_ref[0, :, s * tile_w:(s + 1) * tile_w].reshape(
-                        1, npix
-                    ),
-                )
-        else:
-            def init_for(s):
-                return (
-                    jnp.full((1, npix), NEG_INF, jnp.float32),
-                    jnp.full((1, npix), -1.0, jnp.float32),
+                    jnp.where(upd, wv, best_w),
+                    jnp.where(upd, face, best_f),
                 )
 
-        l0_tile_ids = tuple(
-            ty * ntx0p + txp * pair + s for s in range(pair)
+            return jax.lax.fori_loop(0, n_units * bb, body, carry)
+
+        carry = (
+            jnp.full((npix,), -jnp.inf, jnp.float32),
+            jnp.full((npix,), -1, jnp.int32),
         )
-        carries = [None] * pair
-        gsz = min(l0_group, pair) if pair >= 2 else 1
-        for w in range(0, pair, gsz):
-            subs = tuple(range(w, w + gsz))
-            res = level0_group(
-                s0, c0, subs, tuple(l0_tile_ids[s] for s in subs),
-                tuple(init_for(s) for s in subs),
-            )
-            for k, s in enumerate(subs):
-                carries[s] = res[k]
-
-        if kp:
-            nch = tuple(-(-c // CHUNK) for c in caps)
-            nch_tot = sum(nch)
-            om_ref[...] = jnp.zeros(
-                (1, pair, nch_tot, kp, CHUNK), jnp.float32
-            )
-            cls_iota = jax.lax.broadcasted_iota(jnp.int32, (kp, npix), 0)
-            # exact lane->sublane transpose weights for the winner column
-            w3 = jnp.ones((3, 1), jnp.bfloat16)
-
-        def match_ids(ids_row, best_col, onehot, sub, ch, wdt):
-            """(1, CHUNK) exact-integer candidate ids vs the (npix, 1)
-            winner column: one broadcast equality + one one-hot matmul.
-            Counts land in om's CHUNK-MAJOR layout (chunk ``ch``, lanes
-            [0, wdt)) — the fold consumes (kp, 128) chunk entries with
-            pure reshapes, no relayout (see agg_tiled)."""
-            m = (best_col == ids_row).astype(jnp.bfloat16)  # (npix, CHUNK)
-            cnts = jax.lax.dot_general(
-                onehot, m, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # (kp, CHUNK)
-            om_ref[0, sub, ch, :, :wdt] = cnts[:, :wdt]
-
-        for sub in range(pair):
-            tx = txp * pair + sub
-            # static in-block ancestor indices (pair never straddles a
-            # parent block by construction)
-            p1b = (sub // s1_) if pair >= s1_ else 0
-            p2b = (sub // s2_) if pair >= s2_ else 0
-            # dynamic flat parent ids on the PADDED grids (for SMEM counts)
-            c1_idx = (ty // s1_) * ntx1p + tx // s1_
-            c2_idx = (ty // s2_) * ntx2p + tx // s2_
-            pmat_global = jnp.concatenate(
-                [
-                    xs_local + (tx * tile_w).astype(jnp.float32),
-                    ys_local + (ty * tile_h).astype(jnp.float32),
-                    ones,
-                ],
-                axis=0,
-            )
-            read1 = lambda off, p1b=p1b: s1[0, p1b, :, pl.ds(off, 5 * CHUNK)]
-            read2 = lambda off, p2b=p2b: s2[0, p2b, :, pl.ds(off, 5 * CHUNK)]
-            carry = carries[sub]
-            carry = level(read1, pmat_global, c1[c1_idx], carry)
-            carry = level(read2, pmat_global, c2[c2_idx], carry)
-            if out_ref is not None:
-                # write into the IMAGE layout (rows of tiles side by
-                # side) so the caller needs only reshapes, never a
-                # transpose, on the custom-call result (see DESIGN.md
-                # Mosaic fusion hazard)
-                out_ref[0, :, sub * tile_w:(sub + 1) * tile_w] = (
-                    carry[1].astype(jnp.int32).reshape(tile_h, tile_w)
-                )
-
-            if kp:
-                best = carry[1]  # (1, npix) f32 winner ids (-1 = bg)
-                cls = cls_ref[
-                    0, :, sub * tile_w:(sub + 1) * tile_w
-                ].reshape(1, npix)
-                # class -1 (unlabeled / out-of-image padding) matches no
-                # one-hot row, so those pixels contribute nothing
-                onehot = (cls_iota == cls).astype(jnp.bfloat16)
-                # winner ids < 2^24 split exactly into 3 bf16 digit rows;
-                # contracting with ones reproduces them as an exact f32
-                # COLUMN (the MXU does the lane->sublane transpose)
-                b1 = best.astype(jnp.bfloat16).astype(jnp.float32)
-                r = best - b1
-                b2 = r.astype(jnp.bfloat16).astype(jnp.float32)
-                b3 = r - b2
-                digs = jnp.concatenate([b1, b2, b3], axis=0).astype(
-                    jnp.bfloat16
-                )  # (3, npix)
-                best_col = jax.lax.dot_general(
-                    digs, w3, (((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )  # (npix, 1), exactly == best transposed
-
-                # L0: ids from the slab's digit block rows; chunks are
-                # statically unrolled (caps small), empties skipped
-                cnt0 = c0[l0_tile_ids[sub]]
-                for ci in range(nch[0]):
-                    wdt = min(CHUNK, caps[0] - ci * CHUNK)
-
-                    @pl.when(ci * CHUNK < cnt0)
-                    def _(ci=ci, wdt=wdt):
-                        off = ci * 5 * CHUNK
-                        dig = s0[
-                            sub, 0:3, off + 4 * CHUNK:off + 5 * CHUNK
-                        ]  # (3, CHUNK) digit rows
-                        ids_row = (
-                            dig[0:1]
-                            + 256.0 * dig[1:2]
-                            + 65536.0 * dig[2:3]
-                        )
-                        match_ids(
-                            ids_row, best_col, onehot, sub, ci, wdt
-                        )
-
-                # ancestors: ids ride the f32 id plane (c row of block 4);
-                # output chunks continue after the L0 chunks in the
-                # merged count array
-                for read, cnt, ch_base, lvl in (
-                    (read1, c1[c1_idx], nch[0], 1),
-                    (read2, c2[c2_idx], nch[0] + nch[1], 2),
-                ):
-                    for ci in range(nch[lvl]):
-                        wdt = min(CHUNK, caps[lvl] - ci * CHUNK)
-
-                        @pl.when(ci * CHUNK < cnt)
-                        def _(ci=ci, wdt=wdt, read=read, ch_base=ch_base):
-                            block = read(ci * 5 * CHUNK)
-                            ids_row = block[2:3, 4 * CHUNK:5 * CHUNK]
-                            match_ids(
-                                ids_row, best_col, onehot, sub,
-                                ch_base + ci, wdt,
-                            )
+        carry = walk(cand0, t, cnt0[t], carry)
+        p1 = jnp.minimum(div(ty, s1), nty1 - 1) * ntx1 + jnp.minimum(
+            div(tx, s1), ntx1 - 1
+        )
+        carry = walk(cand1, p1, cnt1[p1], carry)
+        p2 = jnp.minimum(div(ty, s2), nty2 - 1) * ntx2 + jnp.minimum(
+            div(tx, s2), ntx2 - 1
+        )
+        carry = walk(cand2, p2, cnt2[p2], carry)
+        carry = walk(cand3, 0, cnt3[0], carry)
+        out_ref[...] = carry[1]
 
     return kernel
 
 
-def raster_tiles_pallas(
-    binned,
-    planes: jax.Array,
-    config,
-    image_h: int,
-    image_w: int,
-    return_tiles: bool = False,
-    class_image: Optional[jax.Array] = None,
-    n_classes: int = 0,
-    return_pix2face: bool = True,
-    s_init: Optional[Tuple[jax.Array, jax.Array]] = None,
-) -> jax.Array:
-    """Pallas counterpart of ops.rasterize._raster_tiles_xla.
+@functools.partial(
+    jax.jit, static_argnames=("config", "image_h", "image_w", "interpret")
+)
+def raster_tiles_triton(binned, planes, config, image_h: int, image_w: int,
+                        interpret: bool = False) -> jax.Array:
+    """Resolve binned candidates -> ``(image_h, image_w)`` int32 pix2face.
 
-    Args:
-        binned: BinnedTriangles (per-level candidate lists).
-        planes: (F, 12) triangle planes from setup_triangles.
-        s_init: optional image-layout (best_w, best_id) f32 planes of
-            shape (nty0p, tile_h, ntx0p*tile_w) from the level-S
-            sub-tile raster (ops/subtile.s_raster_pallas); when given
-            the per-tile carry starts from them instead of
-            (-inf, background).
-        class_image: optional (H, W) int32 label image (< 0 = ignore).
-            When given, the kernel ALSO emits per-tile per-level
-            (class, slot) pixel counts — the fused equivalent of
-            agg_tiled.tile_class_counts with zero extra kernel launches —
-            and the return value becomes ``(pix2face, (om, cand2m), kp)``
-            where ``om`` is CHUNK-MAJOR
-            (nty0p, ntx0p, nch_tot, kp, 128) — per-tile 128-slot chunks
-            ordered [L0 | L1 | L2+global] along the chunk axis (see
-            agg_tiled._per_level_entries) — and ``cand2m`` the merged
-            L2+global candidate lists the L2 columns were matched
-            against.
-
-    Exact depth ties across the merged L2/global chunk boundary break
-    toward the LOWEST face id (both faces are genuinely visible
-    coplanar geometry); the XLA reference keeps list order there —
-    deterministic either way, differing only on exact-w coplanar ties
-    between an L2 and a global candidate.
+    ``binned`` is a :class:`ops.rasterize.BinnedTriangles` and ``planes``
+    the ``(F, 12)`` plane rows of :class:`ops.rasterize.TriangleSetup`.
+    Compiles for the GPU only; ``interpret=True`` runs the same kernel
+    through the Pallas interpreter (tests on the CPU).
     """
-    n_faces = planes.shape[0]
-    bb = config.bin_block
-    if CHUNK % bb or n_faces % bb:
-        raise ValueError(
-            f"bin_block {bb} must divide CHUNK ({CHUNK}) and the padded "
-            f"face count ({n_faces})"
-        )
-    if n_faces >= (1 << 24):
-        # base-256 digit planes are bf16-exact only below 2^24, and the
-        # empty-slot sentinel id is (1<<24)-1 — chunk the mesh
-        # (meshes/chunked.py) beyond this
-        raise ValueError(
-            f"padded face count {n_faces} exceeds the 2^24-1 id budget "
-            "of the digit-plane encoding; use chunked aggregation"
-        )
-    if config.level_scales[2] % config.level_scales[1]:
-        # rows are padded to s1 only (l0_geometry); s2 must divide the
-        # padded row count or ancestor index maps read out of bounds
-        raise ValueError(
-            f"level_scales[2]={config.level_scales[2]} must be a "
-            f"multiple of level_scales[1]={config.level_scales[1]}"
-        )
-    sentinel = jnp.asarray(
-        [0, 0, -1, 0, 0, -1, 0, 0, -1, 0, 0, 0], planes.dtype
-    )
-    # candidate-unit plane rows, COEFFICIENT-MAJOR within the row
-    # ([coef0 x bb | coef1 x bb | ...]) so _prep_level_slab's per-coef
-    # slices come out candidate-minor (see its docstring).  One small
-    # (12, F) relayout per view.
-    n_units = n_faces // bb
-    planes_ext = jnp.concatenate(
-        [
-            planes.T.reshape(12, n_units, bb)
-            .transpose(1, 0, 2)
-            .reshape(n_units, bb * 12),
-            jnp.repeat(sentinel, bb)[None],
-        ],
-        axis=0,
-    )
-
-    grids = config.grids(image_h, image_w)
-    (nty0, ntx0), (nty1, ntx1), (nty2, ntx2) = grids
-    s1_, s2_ = config.level_scales[1], config.level_scales[2]
     th, tw = config.tile_h, config.tile_w
     npix = th * tw
-
-    # L0 tiles per grid step + padded grid (shared with the level-S
-    # binning; see rasterize.l0_geometry for the pair/padding rationale)
-    from geograypher_tpu.ops.rasterize import l0_geometry
-
-    pair, nty0p, ntx0p = l0_geometry(config, image_h, image_w)
-    if pair > 1 and pair % 2:
-        # the resolve groups L0 tiles in pairs; odd groups never lower
-        raise ValueError(f"config.pair={pair} must be 1 or even")
-    pp1 = max(1, pair // s1_)
-    pp2 = max(1, pair // s2_)
-    # padded ancestor grids: cover all ntx0p tiles, whole blocks
-    ntx1p = _round_up(-(-ntx0p // s1_), pp1)
-    ntx2p = _round_up(-(-ntx0p // s2_), pp2)
-
-    cand0 = binned.cand[0].reshape(nty0, ntx0, -1)
-    if ntx0p != ntx0 or nty0p != nty0:
-        cand0 = jnp.pad(
-            cand0,
-            ((0, nty0p - nty0), (0, ntx0p - ntx0), (0, 0)),
-            constant_values=-1,
-        )
-    cand0 = cand0.reshape(nty0p * ntx0p, -1)
-
-    t0 = cand0.shape[0]
-    tids = jnp.arange(t0, dtype=jnp.int32)
-    origin = (
-        ((tids % ntx0p) * tw).astype(jnp.float32),
-        ((tids // ntx0p) * th).astype(jnp.float32),
-    )
-
-    # merge the single global (L3) list into every L2 parent's list: one
-    # fewer slab buffer / resolve loop / count section / fold level.  The
-    # merged list has the L2 candidates at slots [0, cap2) and the global
-    # ones at [cap2, cap2 + cap3); the resolve loop bound must reach the
-    # last occupied slot across the hole between them.
-    cap2, cap3 = config.caps[2], config.caps[3]
-    cand2m = jnp.concatenate(
-        [
-            binned.cand[2],
-            jnp.broadcast_to(binned.cand[3], (nty2 * ntx2, cap3)),
-        ],
-        axis=1,
-    )
-    cnt3 = jnp.sum(binned.cand[3] >= 0)
-
-    s0, c0 = _prep_level_slab(
-        cand0, planes_ext, n_units, tile_origin=origin, block=bb
-    )
-    slabs, counts = [s0], [c0.reshape(-1)]
-    for lvl, cand_l, (nty_l, ntx_l, ntx_lp) in (
-        (1, binned.cand[1], (nty1, ntx1, ntx1p)),
-        (2, cand2m, (nty2, ntx2, ntx2p)),
-    ):
-        s, c = _prep_level_slab(cand_l, planes_ext, n_units, block=bb)
-        if lvl == 2:
-            # counts in FACE slots; the merged list's L2..global hole
-            # forces the loop bound to the last occupied global slot
-            c = (
-                jnp.where(
-                    cnt3 > 0,
-                    cap2 + cnt3,
-                    jnp.sum(cand_l[:, :cap2] >= 0, axis=1),
-                )
-                * bb
-            ).reshape(c.shape)
-        # (T, 3, cols) -> padded (nty, ntx_p, 3, cols) parent grid; padded
-        # parents get zero counts (their slab rows are never read)
-        s = s.reshape(nty_l, ntx_l, *s.shape[1:])
-        c = c.reshape(nty_l, ntx_l)
-        if ntx_lp != ntx_l:
-            s = jnp.pad(s, ((0, 0), (0, ntx_lp - ntx_l), (0, 0), (0, 0)))
-            c = jnp.pad(c, ((0, 0), (0, ntx_lp - ntx_l)))
-        slabs.append(s)
-        counts.append(c.reshape(-1))
-
-    # occupied-pair compaction (config.occ_pairs via binned.occ_pids):
-    # the grid flattens to one step per OCCUPIED pair, every index map
-    # derives (row, pair-col) from the scalar-prefetched pair-id array —
-    # empty/sky pairs cost neither DMA nor grid steps
-    occ_pids = getattr(binned, "occ_pids", None)
-    occ_mode = occ_pids is not None
-    npx_pairs = ntx0p // pair
-
-    if occ_mode:
-        def IDX(fn):
-            return lambda k, c0, c1, c2, pids, fn=fn: fn(
-                pids[k] // npx_pairs, pids[k] % npx_pairs
-            )
-    else:
-        def IDX(fn):
-            return lambda i, j, *_unused, fn=fn: fn(i, j)
-
-    def slab_spec(lvl):
-        if lvl == 0:
-            rows, cols = slabs[0].shape[1:]
-            # block = `pair` consecutive tiles; index in block units
-            return pl.BlockSpec(
-                (pair, rows, cols),
-                IDX(lambda i, j: (i * npx_pairs + j, 0, 0)),
-                memory_space=pltpu.VMEM,
-            )
-        rows, cols = slabs[lvl].shape[2:]
-        if lvl == 1:
-            idx = IDX(lambda i, j: (
-                i // s1_, ((j * pair) // s1_) // pp1, 0, 0
-            ))
-            ppl = pp1
-        else:
-            idx = IDX(lambda i, j: (
-                i // s2_, ((j * pair) // s2_) // pp2, 0, 0
-            ))
-            ppl = pp2
-        return pl.BlockSpec(
-            (1, ppl, rows, cols), idx, memory_space=pltpu.VMEM
-        )
-
-    kp = 0
-    extra_in = []
-    extra_in_specs = []
-    extra_out_shapes = []
-    extra_out_specs = []
-    if s_init is not None:
-        sw_pl, sid_pl = s_init
-        if sw_pl.shape != (nty0p, th, ntx0p * tw):
-            raise ValueError(
-                f"s_init planes shape {sw_pl.shape} != "
-                f"{(nty0p, th, ntx0p * tw)} (padded grid mismatch)"
-            )
-        tile_block_spec = lambda: _row_image_spec(
-            th, pair, tw, idx=IDX(lambda i, j: (i, 0, j))
-        )
-        extra_in += [sw_pl, sid_pl]
-        extra_in_specs += [tile_block_spec(), tile_block_spec()]
-    if class_image is not None:
-        kp = _round_up(max(n_classes, 1), 16)
-        # class image in the kernel's row-image layout, -1 beyond extent
-        cls_pad = jnp.full((nty0p * th, ntx0p * tw), -1, jnp.int32)
-        cls_pad = cls_pad.at[:image_h, :image_w].set(
-            class_image.astype(jnp.int32)[:image_h, :image_w]
-        )
-        extra_in += [cls_pad.reshape(nty0p, th, ntx0p * tw)]
-        extra_in_specs += [
-            pl.BlockSpec(
-                (1, th, pair * tw),
-                IDX(lambda i, j: (i, 0, j)),
-                memory_space=pltpu.VMEM,
-            )
-        ]
-        # CHUNK-MAJOR merged counts: (ty, tx, chunk, kp, 128) with the
-        # chunk axis [L0 | L1 | L2+global] — (kp, 128) minor tiles are
-        # exactly the fold's entry shape, so the whole fold prep is pure
-        # reshapes (the old (ty, tx, kp, capsum) slot-major layout cost
-        # two full-stack relayout copies per group)
-        nch_tot = sum(
-            -(-c * bb // CHUNK)
-            for c in (config.caps[0], config.caps[1], cap2 + cap3)
-        )
-        extra_out_shapes.append(
-            jax.ShapeDtypeStruct(
-                (nty0p, ntx0p, nch_tot, kp, CHUNK), jnp.float32
-            )
-        )
-        extra_out_specs.append(
-            pl.BlockSpec(
-                (1, pair, nch_tot, kp, CHUNK),
-                IDX(lambda i, j: (i, j, 0, 0, 0)),
-                memory_space=pltpu.VMEM,
-            )
-        )
-
-    l0g = getattr(config, "l0_group", 2)
-    if pair > 1 and (l0g < 1 or pair % l0g):
+    if npix & (npix - 1):
         raise ValueError(
-            f"config.l0_group={l0g} must be >= 1 and divide pair={pair}"
+            f"tile {th}x{tw}: the Triton resolve needs a power-of-two "
+            "pixel count per tile"
         )
-    emit_p2f = return_pix2face or class_image is None
+    grids = config.grids(image_h, image_w)
+    nty0, ntx0 = grids[0]
+    n_tiles = nty0 * ntx0
     kernel = _make_kernel(
-        th, tw, config.level_scales, pair, ntx0p, ntx1p, ntx2p,
-        kp=kp,
-        caps=(
-            config.caps[0] * bb, config.caps[1] * bb, (cap2 + cap3) * bb
-        ),
-        emit_p2f=emit_p2f,
-        s_init=s_init is not None,
-        occ=occ_mode,
-        l0_group=l0g,
+        th, tw, ntx0, grids, config.level_scales, config.bin_block
     )
-
-    p2f_out_specs = (
-        [
-            pl.BlockSpec(
-                (1, th, pair * tw),
-                IDX(lambda i, j: (i, 0, j)),
-                memory_space=pltpu.VMEM,
-            )
-        ]
-        if emit_p2f
-        else []
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        # per-tile count arrays (+ the occupied-pair id map), in SMEM
-        num_scalar_prefetch=4 if occ_mode else 3,
-        grid=(
-            (occ_pids.shape[0],) if occ_mode
-            else (nty0p, ntx0p // pair)
-        ),
-        in_specs=[slab_spec(lvl) for lvl in range(3)] + extra_in_specs,
-        out_specs=p2f_out_specs + extra_out_specs,
-    )
-    # optimization_barrier: when XLA fuses the slab/count producers into
-    # the Mosaic custom call's operands, the kernel observes corrupted
-    # operands (measured on v5e: zero scalar-prefetch counts -> empty
-    # output at bench scale, while the same call with materialized
-    # operands is correct).  The barrier forces materialization in the
-    # default layout before the call.
-    operands = jax.lax.optimization_barrier(
-        (
-            counts[0],
-            counts[1],
-            counts[2],
-            *((occ_pids,) if occ_mode else ()),
-            *slabs,
-            *extra_in,
-        )
-    )
-    p2f_out_shapes = (
-        [jax.ShapeDtypeStruct((nty0p, th, ntx0p * tw), jnp.int32)]
-        if emit_p2f
-        else []
-    )
-    outs = pl.pallas_call(
+    tiles = pl.pallas_call(
         kernel,
-        out_shape=p2f_out_shapes + extra_out_shapes,
-        grid_spec=grid_spec,
-        interpret=jax.default_backend() == "cpu",
-    )(*operands)
-
-    outs = jax.lax.optimization_barrier(tuple(outs))
-    if occ_mode:
-        # skipped pairs were never visited: their pix2face blocks are
-        # undefined and their count blocks would otherwise be read by
-        # the fold's candidate-driven entry compaction (the merged
-        # global list flags every tile's L2 chunks nonempty) — mask both
-        tile_mask = jnp.repeat(
-            binned.occ_mask.reshape(nty0p, npx_pairs), pair, axis=1
-        )
-        outs = list(outs)
-        if emit_p2f:
-            pixm = jnp.repeat(tile_mask, tw, axis=1)[:, None, :]
-            outs[0] = jnp.where(pixm, outs[0], -1)
-        if class_image is not None:
-            outs[-1] = jnp.where(
-                tile_mask[:, :, None, None, None], outs[-1], 0.0
-            )
-    if emit_p2f:
-        out = outs[0]
-        if not return_tiles:
-            out = out.reshape(nty0p * th, ntx0p * tw)[:image_h, :image_w]
-    else:
-        out = None
-    if class_image is not None:
-        # merged per-level counts: columns [L0 | L1 | L2+global]; the
-        # merged candidate list goes back as FACE ids in slab slot order
-        from geograypher_tpu.ops.rasterize import expand_block_ids
-
-        return out, (outs[-1], expand_block_ids(cand2m, bb)), kp
-    return out
-
+        out_shape=jax.ShapeDtypeStruct((n_tiles, npix), jnp.int32),
+        grid=(n_tiles,),
+        in_specs=[pl.no_block_spec] * 9,
+        out_specs=pl.BlockSpec((None, npix), lambda t: (t, 0)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret,
+        name="raster_resolve",
+    )(*binned.counts, *binned.cand, planes)
+    img = tiles.reshape(nty0, ntx0, th, tw).transpose(0, 2, 1, 3)
+    return img.reshape(nty0 * th, ntx0 * tw)[:image_h, :image_w]

@@ -1,4 +1,4 @@
-"""TPU-native triangle rasterizer producing pix-to-face maps.
+"""Triangle rasterizer producing pix-to-face maps.
 
 This single component replaces BOTH rasterization backends of the reference:
 the VTK base-256 color-encoding renderer (meshes/meshes.py:1749-1803) and the
@@ -7,31 +7,31 @@ It produces, for each camera, an ``(H, W) int32`` map of the mesh face id
 visible at each pixel (-1 = background), occlusion-correct by construction
 and deterministic: exact depth ties break toward the lowest face id within
 a binning level's candidate list, and by the fixed level order
-(S, L0, L1, L2, global) across levels — the same inputs always produce the
+(L0, L1, L2, global) across levels — the same inputs always produce the
 same map (unlike the reference's last-drawn-wins scatter).
 
-Architecture (chosen from on-chip microbenchmarks; see repo docs):
+Pipeline:
 
-1. **Setup**: triangles are pre-gathered to ``(F, 3, 3)`` vertex triplets
-   once per mesh, so the per-view path is pure matmul + elementwise math
-   (no per-view gathers).  Vertices are transformed to the camera frame and
+1. **Setup**: triangles are pre-gathered to ``(9, F)`` coordinate rows
+   once per mesh, so the per-view path is pure elementwise math (no
+   per-view gathers).  Vertices are transformed to the camera frame and
    projected with the *ideal* pinhole model (no principal point — matching
    the reference's VTK camera which only sets a vertical FOV,
    cameras.py:446-463; principal point + lens distortion are applied by the
    distortion warp stage).
 2. **Binning**: each triangle is assigned to the finest level of a 3-level
-   tile hierarchy whose 2x2 tile window covers its screen bbox, emitting at
-   most 4 (tile-key, face-id) pairs.  One stable sort of the 4F pairs
-   yields contiguous per-tile candidate lists (sort measured at ~2ms/M
-   pairs on v5e — far cheaper than XLA scatter).  Oversize triangles land
-   in a global list; nothing is dropped silently (overflow counts are
+   tile hierarchy whose tile window covers its screen bbox, emitting a few
+   (tile-key, unit-id) pairs.  One stable sort of the pairs yields
+   contiguous per-tile candidate lists.  Oversize triangles land in a
+   global list; nothing is dropped silently (overflow counts are
    returned).
-3. **Raster**: per (8 x 128) pixel tile — the native VPU register shape —
-   edge functions and the 1/z depth plane for all candidates are evaluated
-   as one ``(pixels, 3) @ (3, 4C)`` matmul (MXU), followed by a masked
-   depth-argmax.  The XLA path scans candidate chunks under a vmap over
-   tiles; the Pallas path (ops/pallas_raster.py) keeps the tile state in
-   VMEM and loops only over the actual candidate count.
+3. **Resolve**: per (8 x 128) pixel tile, the 3 edge functions and the
+   1/z depth plane of every candidate are evaluated at the pixel centres,
+   followed by a masked depth-argmax.  :func:`resolve_tiles` picks the
+   implementation by platform: a Triton kernel on the GPU
+   (ops/pallas_raster.py), which walks each tile's true candidate count
+   with its state in registers, and the XLA reference
+   (:func:`_raster_tiles_xla`), which scans candidate chunks, on the CPU.
 
 Depth is interpolated perspective-correctly: 1/z is affine in screen space,
 so each triangle carries an affine "w-plane"; the visible face maximizes w.
@@ -65,17 +65,13 @@ class RasterConfig:
     # candidate chunk size for the XLA scan kernel
     chunk: int = 16
     znear: float = 1e-6
-    backend: str = "xla"  # "xla" | "pallas"
-    # L0 tiles resolved per pallas grid step (0 = auto); must span a
-    # whole number of L1/L2 parents or divide one evenly
-    pair: int = 0
     # faces binned per candidate unit.  With spatially-sorted faces
     # (scanline order) a tile's candidates are contiguous id RUNS, so
     # binning BLOCKS of bin_block consecutive faces shrinks the sort and
-    # the two big binning/slab gathers by ~bin_block while adding only a
-    # few percent of ride-along faces to the resolve (the dominant
-    # tile-row straddle duplication is granularity-independent).  caps
-    # then count BLOCKS per tile (face capacity = caps * bin_block).
+    # the two big binning gathers by ~bin_block while adding only a few
+    # percent of ride-along faces to the resolve (the dominant tile-row
+    # straddle duplication is granularity-independent).  caps then count
+    # BLOCKS per tile (face capacity = caps * bin_block).
     bin_block: int = 1
     # level-0 tile window span (rows, cols) — or an int for square: a
     # candidate stays at L0 when a (wy x wx) tile window covers its bbox
@@ -85,69 +81,11 @@ class RasterConfig:
     # flooding the 16x-per-candidate L1 resolve, at up to wy*wx sort
     # pairs per unit (cheap under bin_block).
     l0_window: Union[int, Tuple[int, int]] = 2
-    # face-block fold capacities for the fused aggregation path
-    # (ops/agg_tiled.py); size via agg_tiled.level_fold_windows for a
-    # survey configuration (overflows drop counts, never corrupt).
-    # fold_w_cap is an int (shared by all fold levels) or a per-level
-    # (L0, L1, L2+global[, S]) tuple — the L2+global level needs its own
-    # cap on meshes with global-level candidates (irregular TINs)
-    fold_block: int = 1024
-    fold_w_cap: Union[int, Tuple[int, ...]] = 256
-    # unit-fold DMA batch width (entries per async copy, multiple of 8):
-    # larger batches amortize DMA issue + semaphore latency over more
-    # entries at the cost of ring VMEM (kb * 16 * 128 * 4 B per slot)
-    fold_unit_kb: int = 8
-    # per-level (L0, L1, L2+global) caps on NONEMPTY 128-slot chunk
-    # entries per view for the fused fold: when set, each view's count
-    # entries are compacted to the occupied chunks right after its
-    # raster, so the dense census-cap count buffers (sized for the WORST
-    # tile, typically ~5x actual occupancy) die early instead of staying
-    # live through the group fold.  None (or None per level) disables
-    # compaction for safety; size via agg_tiled.entry_occupancy and
-    # check the fold's returned overflow (drops are counted, never
-    # silent).
-    entry_caps: Optional[Tuple[Optional[int], ...]] = None
-    # level-S sub-tile raster (ops/subtile.py): cell size (h, w) or None
-    # to disable.  Small units are evaluated against one (h, w) sub-tile
-    # instead of the whole (8, 128) L0 tile (~3.5x less resolve work on
-    # varied drone surveys).  s_window is the sub-tile-cell fit window,
-    # s_block the unit granularity (must divide bin_block and 32).
-    subtile: Optional[Tuple[int, int]] = None
-    s_window: Tuple[int, int] = (3, 2)
-    s_block: int = 4
-    # census-sized capacities: total S chunks per view and the kernel's
-    # per-tile-pair grid depth (chunks); size via subtile_counts_census
-    s_cap_chunks: Optional[int] = None
-    s_pair_chunks: Optional[int] = None
-    # chunks per S-kernel DMA batch (grid step); pair ranges and
-    # s_cap_chunks must be multiples of it
-    s_kb: int = 4
-    # L0 tiles sharing one wide resolve dot per chunk in the pallas
-    # kernel (must divide ``pair``).  2 halves the MXU dot issues but
-    # runs BOTH tiles' resolve loops to the pair's max chunk count; 1
-    # bounds each tile by its own count (cheaper when neighbor tiles'
-    # occupancies are skewed, e.g. oblique horizon rows).
-    l0_group: int = 2
-    # census-sized count of OCCUPIED L0 tile pairs (None = dense grid).
-    # When set, the pallas raster kernel's grid compacts to the pairs
-    # that any candidate (tile lists, global bboxes, or level-S chunks)
-    # actually touches, via a scalar-prefetched pair-id map — off-mesh /
-    # sky tile pairs cost neither DMA nor grid steps (oblique views are
-    # ~40% empty at 4K).  Size from a per-view census of
-    # ``BinnedTriangles.occ_mask.sum()``; undersizing surfaces in
-    # ``BinnedTriangles.overflow`` (dropped pairs, never silent).
-    occ_pairs: Optional[int] = None
     # First face id of the mesh's OVERSIZED-face tail (see
     # utils.geometric.partitioned_face_order): units containing any face
-    # >= this id are binned to the GLOBAL level unconditionally (and
-    # never diverted to level S).  Oversized faces carry trailing ids far
-    # from their spatial neighbors, so letting a far-field giant bin to
-    # L0 puts a [local ids .. trailing ids] band into that tile's chunk
-    # entries and the face-block fold windows explode (measured: L0
-    # window demand 699 -> 14,774 entries on the irregular-TIN benchmark
-    # once giants packed at the tail could reach L0).  Forcing them
-    # global keeps every tile level's id bands local and the global
-    # list's own band compact ([global_from, F)).  None disables.
+    # >= this id are binned to the GLOBAL level unconditionally, keeping
+    # the tile-level candidate lists to spatially local id runs.  The
+    # pix2face output does not depend on it.  None disables.
     global_from: Optional[int] = None
 
     def grids(self, image_h: int, image_w: int):
@@ -178,20 +116,14 @@ class BinnedTriangles(NamedTuple):
     cand: Tuple[jax.Array, jax.Array, jax.Array, jax.Array]
     counts: Tuple[jax.Array, jax.Array, jax.Array, jax.Array]
     overflow: jax.Array  # () int32 candidates dropped by capacity limits
-    # occupied-pair compaction (config.occ_pairs; None = dense grid):
-    # (occ_pairs,) int32 occupied L0-pair ids (ascending, padded by
-    # repeating the last id) and the (n_pairs,) bool occupancy mask
-    occ_pids: Optional[jax.Array] = None
-    occ_mask: Optional[jax.Array] = None
 
 
 def tri_to_soa(tri_verts: jax.Array) -> jax.Array:
     """(F, 3, 3) triangles -> (9, F) coordinate ROWS (x0 y0 z0 x1 ... z2).
 
-    TPU vector registers are (8, 128): elementwise math over (F, 3)/(F, 9)
-    arrays runs at 3/128 lane occupancy, a measured ~10x slowdown of the
-    whole triangle-setup stage.  All per-view geometry therefore runs on
-    (F,)-contiguous coordinate rows; do this transpose ONCE per mesh.
+    All per-view geometry runs on (F,)-contiguous coordinate rows, so
+    every elementwise op reads and writes contiguous memory; do this
+    transpose ONCE per mesh.
     """
     f_count = tri_verts.shape[0]
     return tri_verts.reshape(f_count, 9).T
@@ -207,7 +139,7 @@ def setup_from_soa(
     distortion=None,
 ) -> TriangleSetup:
     """Camera transform + screen projection + raster planes, fused, on
-    (9, F) coordinate rows (full-lane VPU; see :func:`tri_to_soa`).
+    (9, F) coordinate rows (see :func:`tri_to_soa`).
 
     Returns a :class:`TriangleSetup`.  ``planes[:, 0:9]`` are edge
     coefficients (A, B, C) x 3 normalized to positive orientation;
@@ -250,8 +182,8 @@ def setup_from_soa(
     sx, sy, w_rows, zs = [], [], [], []
     for v in range(3):
         wx, wy, wz = tri_soa[3 * v], tri_soa[3 * v + 1], tri_soa[3 * v + 2]
-        # elementwise 3x3 rotate: exact f32 on the VPU (no MXU bf16
-        # rounding, no 6-pass HIGHEST) — K=3 can't use the MXU anyway
+        # elementwise 3x3 rotate: exact f32 FMAs, no matmul precision
+        # mode involved (K=3 has no use for a matrix unit)
         cx = rot[0, 0] * wx + rot[0, 1] * wy + rot[0, 2] * wz + t[0]
         cy = rot[1, 0] * wx + rot[1, 1] * wy + rot[1, 2] * wz + t[1]
         cz = rot[2, 0] * wx + rot[2, 1] * wy + rot[2, 2] * wz + t[2]
@@ -372,173 +304,12 @@ def setup_triangles(
     )
 
 
-def l0_geometry(config: RasterConfig, image_h: int, image_w: int):
-    """(pair, nty0p, ntx0p): the pallas rasterizer's L0 grid-step width
-    and padded tile-grid shape.
-
-    ``pair`` L0 tiles are resolved per grid step; it must span a whole
-    number of L1/L2 parents or divide one evenly so ancestor-slab
-    indices stay static inside a step.  Measured on v5e at bench scale:
-    pair=2 is optimal; pair>=4 hits a Mosaic pipelining cliff (+60
-    ms/view — the larger blocks stop double-buffering), so the auto
-    choice stays at 2.  Rows are padded to the L1 scale so downstream
-    child->parent count reductions see an aligned grid.  The level-S
-    sub-tile binning shares this geometry (its CSR chunk ranges are
-    per tile pair).
-    """
-    grids = config.grids(image_h, image_w)
-    nty0, ntx0 = grids[0]
-    s1_, s2_ = config.level_scales[1], config.level_scales[2]
-    def compatible(p):
-        return (p % s1_ == 0 or s1_ % p == 0) and (
-            p % s2_ == 0 or s2_ % p == 0
-        )
-
-    explicit = getattr(config, "pair", 0)
-    if explicit and not compatible(explicit):
-        raise ValueError(
-            f"config.pair={explicit} must divide or be divided by "
-            f"level_scales {s1_}/{s2_}"
-        )
-    pair = 1
-    if ntx0 > 1:
-        for p in (explicit, 2):
-            if p and compatible(p):
-                pair = p
-                break
-    ntx0p = -(-ntx0 // pair) * pair
-    nty0p = -(-nty0 // s1_) * s1_
-    return pair, nty0p, ntx0p
-
-
-def bin_all(setup: TriangleSetup, config: RasterConfig, image_h: int,
-            image_w: int):
-    """Bin triangles at every level: (BinnedTriangles, SubtileBinned|None).
-
-    With ``config.subtile`` set (pallas backend only), small units are
-    diverted to the level-S sub-tile lists FIRST and excluded from the
-    L0..L3 binning — assignment is exclusive, no face is resolved or
-    counted twice.  Requires census-sized ``s_cap_chunks`` /
-    ``s_pair_chunks`` (see subtile.subtile_counts_census).
-    """
-    if config.subtile is None or config.backend != "pallas":
-        binned, sb = bin_triangles(setup, config, image_h, image_w), None
-    else:
-        from geograypher_tpu.ops.subtile import bin_subtiles
-
-        if config.s_cap_chunks is None or config.s_pair_chunks is None:
-            raise ValueError(
-                "config.subtile requires census-sized s_cap_chunks and "
-                "s_pair_chunks (run subtile.subtile_counts_census per "
-                "view and size from the worst)"
-            )
-        pair, _nty0p, ntx0p = l0_geometry(config, image_h, image_w)
-        sb = bin_subtiles(
-            setup, config, image_h, image_w, ntx0p, pair,
-            cap_chunks=config.s_cap_chunks, kb=config.s_kb,
-        )
-        binned = bin_triangles(
-            setup, config, image_h, image_w, exclude_blocks=sb.s_mask8
-        )
-    if config.occ_pairs is not None and config.backend == "pallas":
-        pids, occ_mask, occ_over = _occupied_pairs(
-            setup, binned, sb, config, image_h, image_w
-        )
-        binned = binned._replace(
-            occ_pids=pids, occ_mask=occ_mask,
-            overflow=binned.overflow + occ_over,
-        )
-    return binned, sb
-
-
-def _occupied_pairs(setup, binned, sb, config, image_h, image_w):
-    """Occupied L0-pair compaction inputs (see RasterConfig.occ_pairs).
-
-    A pair is OCCUPIED iff any candidate can touch it: an L0 candidate
-    in either of its tiles, an L1/L2 candidate in an ancestor, a GLOBAL
-    (level-3) candidate whose pixel bbox intersects the pair, or a
-    level-S chunk bound to it.  Skipped pairs are provably background —
-    the kernel's compacted grid never visits them, and the caller masks
-    their pix2face/count blocks.
-
-    Returns (occ_pids (config.occ_pairs,) int32 ascending + last-id
-    padding, occ_mask (n_pairs,) bool, overflow () int32 dropped pairs).
-    """
-    pair, nty0p, ntx0p = l0_geometry(config, image_h, image_w)
-    npx = ntx0p // pair
-    grids = config.grids(image_h, image_w)
-    (nty0, ntx0), (nty1, ntx1), (nty2, ntx2) = grids
-    s1_, s2_ = config.level_scales[1], config.level_scales[2]
-
-    occ_t = jnp.any(binned.cand[0] >= 0, axis=1).reshape(nty0, ntx0)
-    occ_t = jnp.pad(occ_t, ((0, nty0p - nty0), (0, ntx0p - ntx0)))
-    for lvl, nty_l, ntx_l, s_l in ((1, nty1, ntx1, s1_), (2, nty2, ntx2, s2_)):
-        o = jnp.any(binned.cand[lvl] >= 0, axis=1).reshape(nty_l, ntx_l)
-        o = jnp.repeat(jnp.repeat(o, s_l, axis=0), s_l, axis=1)
-        pad_y = max(0, nty0p - o.shape[0])
-        pad_x = max(0, ntx0p - o.shape[1])
-        if pad_y or pad_x:
-            o = jnp.pad(o, ((0, pad_y), (0, pad_x)))
-        occ_t = occ_t | o[:nty0p, :ntx0p]
-    occ_p = jnp.any(occ_t.reshape(nty0p, npx, pair), axis=2)
-
-    # global (level-3) candidates: pixel-bbox intersection with each pair
-    cand3 = binned.cand[3].reshape(-1)
-    if cand3.shape[0]:
-        bb = config.bin_block
-        py0, px0, py1, px1 = (setup.bbox[k] for k in range(4))
-        valid = setup.valid
-        if bb > 1:
-            big = jnp.asarray(INT32_MAX, jnp.int32)
-            py0 = jnp.min(jnp.where(valid, py0, big).reshape(-1, bb), axis=1)
-            px0 = jnp.min(jnp.where(valid, px0, big).reshape(-1, bb), axis=1)
-            py1 = jnp.max(jnp.where(valid, py1, -1).reshape(-1, bb), axis=1)
-            px1 = jnp.max(jnp.where(valid, px1, -1).reshape(-1, bb), axis=1)
-        g = jnp.clip(cand3, 0, py0.shape[0] - 1)
-        gv = (cand3 >= 0)[:, None, None]
-        gy0, gx0 = py0[g][:, None, None], px0[g][:, None, None]
-        gy1, gx1 = py1[g][:, None, None], px1[g][:, None, None]
-        th, tw = config.tile_h, config.tile_w
-        ty = jnp.arange(nty0p, dtype=jnp.int32)[None, :, None]
-        tx = jnp.arange(npx, dtype=jnp.int32)[None, None, :]
-        ylo, yhi = ty * th, ty * th + (th - 1)
-        xlo = tx * (pair * tw)
-        xhi = xlo + (pair * tw - 1)
-        touch = jnp.any(
-            gv & (gy0 <= yhi) & (gy1 >= ylo) & (gx0 <= xhi) & (gx1 >= xlo),
-            axis=0,
-        )
-        occ_p = occ_p | touch
-
-    if sb is not None:
-        # pairs holding level-S chunks must run: the kernel seeds its
-        # carry from the S winners and writes them into pix2face
-        occ_p = occ_p | (sb.pair_cnt > 0).reshape(nty0p, npx)
-
-    occ_flat = occ_p.reshape(-1)
-    n_pairs = occ_flat.shape[0]
-    cap = int(config.occ_pairs)
-    order = jnp.argsort(~occ_flat, stable=True).astype(jnp.int32)
-    n_occ = jnp.sum(occ_flat.astype(jnp.int32))
-    take = order[:cap]
-    if cap > n_pairs:  # cap can exceed the grid on small images
-        take = jnp.pad(take, (0, cap - n_pairs))
-    idx = jnp.arange(cap, dtype=jnp.int32)
-    # pad with the first UNOCCUPIED pair: all its counts are zero, so
-    # pad steps cost one (cached) empty DMA and no resolve work; falls
-    # back to pair 0 when the grid is fully occupied (benign recompute)
-    pad_id = jnp.argmin(occ_flat).astype(jnp.int32)
-    pids = jnp.where(idx < n_occ, take, pad_id)
-    overflow = jnp.maximum(n_occ - cap, 0)
-    return pids, occ_flat, overflow
-
-
 def expand_block_ids(cand: jax.Array, block: int) -> jax.Array:
     """(..., C) BLOCK-id candidate lists -> (..., C*block) face ids.
 
     Empty slots (< 0) expand to -1.  Identity when ``block == 1``.  Face
     ids within a block stay ascending, preserving the in-tile ordering
-    the resolve tie-break and the fold's band tests rely on.
+    the resolve tie-break relies on.
     """
     if block == 1:
         return cand
@@ -548,18 +319,12 @@ def expand_block_ids(cand: jax.Array, block: int) -> jax.Array:
     return face.reshape(cand.shape[:-1] + (cand.shape[-1] * block,))
 
 
-def l0_face_ids(binned: BinnedTriangles, config: RasterConfig) -> jax.Array:
-    """Level-0 candidate lists as FACE ids (fold-window sizing input)."""
-    return expand_block_ids(binned.cand[0], config.bin_block)
-
-
 def bin_triangles(
     setup: TriangleSetup,
     config: RasterConfig,
     image_h: int,
     image_w: int,
     return_census: bool = False,
-    exclude_blocks: Optional[jax.Array] = None,
 ):
     """Assign triangles to tile candidate lists via one stable sort.
 
@@ -571,7 +336,7 @@ def bin_triangles(
 
     With ``config.bin_block > 1`` the unit is a BLOCK of bin_block
     consecutive faces (bbox = union of its valid members): the sort and
-    the candidate/slab gathers shrink ~bin_block-fold while the resolve
+    the candidate gathers shrink ~bin_block-fold while the resolve
     pays only the blocks' ride-along faces (inert via sentinel planes).
     ``cand`` then holds block ids — expand with :func:`expand_block_ids`.
     """
@@ -593,10 +358,6 @@ def bin_triangles(
         px1 = jnp.max(jnp.where(valid, px1, -1).reshape(-1, bb), axis=1)
         valid = jnp.any(valid.reshape(-1, bb), axis=1)
         f_count = f_count // bb
-    if exclude_blocks is not None:
-        # blocks diverted to the level-S sub-tile raster (exclusive
-        # assignment: a face is never resolved or counted twice)
-        valid = valid & ~exclude_blocks
 
     level_base = []
     base = 0
@@ -626,7 +387,6 @@ def bin_triangles(
     fits0, fits1, fits2 = (pl[4] for pl in per_level)
     if config.global_from is not None:
         # units holding any oversized-tail face go global unconditionally
-        # (their trailing ids would explode tile-level fold windows)
         unit_last = (
             jnp.arange(f_count, dtype=jnp.int32) * bb + (bb - 1)
         )
@@ -635,7 +395,7 @@ def bin_triangles(
     level = jnp.where(fits0, 0, jnp.where(fits1, 1, jnp.where(fits2, 2, 3)))
 
     def pick(field_idx):
-        # elementwise 3-way select (cheaper than a gather on TPU)
+        # elementwise 3-way select over the per-level fields
         a, b, c = (pl[field_idx] for pl in per_level)
         return jnp.where(fits0, a, jnp.where(fits1, b, c))
 
@@ -667,10 +427,9 @@ def bin_triangles(
             keys.append(jnp.where(ok, key, INT32_MAX))
 
     face_ids = jnp.arange(f_count, dtype=jnp.int32)
-    # full-lane (wy*wx*F,) pair layout (an (F, k) stack would run every
-    # subsequent op at k/128 lane occupancy); sorting with num_keys=2
-    # (key, then face) restores ascending face ids within each tile,
-    # which the raster tie-break and the fold's band tests rely on
+    # flat (wy*wx*F,) pair layout; sorting with num_keys=2 (key, then
+    # face) restores ascending face ids within each tile, which the
+    # resolve's lowest-id tie-break relies on
     key_flat = jnp.concatenate(keys, axis=0).astype(jnp.int32)
     face_flat = jnp.concatenate([face_ids] * (wy0 * wx0), axis=0)
 
@@ -712,11 +471,6 @@ def bin_triangles(
         nty_l, ntx_l = grids[lvl]
         cap_l = config.caps[lvl]
         n_l = nty_l * ntx_l
-        # NOTE: a segment-DMA Pallas kernel for the L0 lists (tiles'
-        # candidates are contiguous runs of sorted_faces) is blocked by a
-        # Mosaic compiler crash on 1-lane-minor DMA regions, and every
-        # workaround reintroduces a per-element realignment gather — see
-        # docs/DESIGN.md dead ends.
         c, n, o = gather_level(level_base[lvl], n_l, cap_l)
         cands.append(c)
         cnts.append(n)
@@ -740,8 +494,7 @@ def concat_candidates_for_tiles(
 ) -> jax.Array:
     """(n_tiles0, Ctot) candidate lists for the XLA kernel: each L0 tile's
     own list followed by its ancestors' lists and the global list.  The
-    Pallas kernel instead addresses ancestor slabs via BlockSpec index maps
-    (no duplication)."""
+    Triton kernel instead reads each level's list in place."""
     grids = config.grids(image_h, image_w)
     (nty0, ntx0) = grids[0]
     bb = config.bin_block
@@ -774,7 +527,6 @@ def _raster_tiles_xla(
     config: RasterConfig,
     image_h: int,
     image_w: int,
-    return_tiles: bool = False,
 ) -> jax.Array:
     """Evaluate per-tile candidates and z-resolve: XLA reference kernel.
 
@@ -837,16 +589,44 @@ def _raster_tiles_xla(
     (best_w, best_face), _ = jax.lax.scan(
         step, init, cand.reshape(n_tiles, n_chunks, chunk).transpose(1, 0, 2)
     )
-    if return_tiles:
-        # same (nty, th, ntx*tw) row-image layout as the pallas backend
-        return (
-            best_face.reshape(nty, ntx, th, tw)
-            .transpose(0, 2, 1, 3)
-            .reshape(nty, th, ntx * tw)
-        )
     face_img = best_face.reshape(nty, ntx, th, tw).transpose(0, 2, 1, 3)
     face_img = face_img.reshape(nty * th, ntx * tw)
     return face_img[:image_h, :image_w]
+
+
+def resolve_tiles(
+    binned: BinnedTriangles,
+    planes: jax.Array,
+    config: RasterConfig,
+    image_h: int,
+    image_w: int,
+    interpret: bool = False,
+) -> jax.Array:
+    """Per-tile z-buffer resolve -> ``(image_h, image_w)`` int32 pix2face.
+
+    The implementation is chosen by the platform the program is lowered
+    for: the Triton kernel (:mod:`ops.pallas_raster`) on CUDA GPUs, the
+    plain XLA reference (:func:`_raster_tiles_xla`) on the CPU; any other
+    platform fails to lower.  ``interpret=True`` runs the Triton kernel
+    through the Pallas interpreter on any platform (tests).
+    """
+    from geograypher_tpu.ops.pallas_raster import raster_tiles_triton
+
+    def kernel(binned, planes):
+        return raster_tiles_triton(
+            binned, planes, config, image_h, image_w, interpret=interpret
+        )
+
+    if interpret:
+        return kernel(binned, planes)
+
+    def reference(binned, planes):
+        cand = concat_candidates_for_tiles(binned, config, image_h, image_w)
+        return _raster_tiles_xla(cand, planes, config, image_h, image_w)
+
+    return jax.lax.platform_dependent(
+        binned, planes, cpu=reference, cuda=kernel
+    )
 
 
 def rasterize_setup(
@@ -854,42 +634,10 @@ def rasterize_setup(
     config: RasterConfig,
     image_h: int,
     image_w: int,
-    return_tiles: bool = False,
 ):
-    """Bin + rasterize prepared triangles -> (pix2face, diagnostics).
-
-    With ``return_tiles`` the pix2face comes back in the rasterizer's
-    native row-image layout ``(nty0, tile_h, ntx0x*tile_w)`` (rows of
-    tiles side by side; reshape-only from the kernel output), which feeds
-    :mod:`geograypher_tpu.ops.agg_tiled` directly.
-    """
-    binned, sb = bin_all(setup, config, image_h, image_w)
-    if config.backend == "pallas":
-        from geograypher_tpu.ops.pallas_raster import raster_tiles_pallas
-
-        s_init = None
-        if sb is not None:
-            from geograypher_tpu.ops.subtile import s_raster_pallas
-
-            pair, _, ntx0p = l0_geometry(config, image_h, image_w)
-            s_init = s_raster_pallas(
-                sb, setup.planes, config, image_h, image_w, ntx0p, pair,
-                kb=config.s_kb,
-            )
-        pix2face = raster_tiles_pallas(
-            binned, setup.planes, config, image_h, image_w,
-            return_tiles=return_tiles, s_init=s_init,
-        )
-    else:
-        cand = concat_candidates_for_tiles(binned, config, image_h, image_w)
-        pix2face = _raster_tiles_xla(
-            cand, setup.planes, config, image_h, image_w,
-            return_tiles=return_tiles,
-        )
-    if sb is not None:
-        # S chunk-capacity drops are diagnostics too (the diverted faces
-        # left the L0..L3 lists, so only sb.overflow accounts for them)
-        binned = binned._replace(overflow=binned.overflow + sb.overflow)
+    """Bin + resolve prepared triangles -> (pix2face, BinnedTriangles)."""
+    binned = bin_triangles(setup, config, image_h, image_w)
+    pix2face = resolve_tiles(binned, setup.planes, config, image_h, image_w)
     return pix2face, binned
 
 
@@ -901,188 +649,22 @@ def rasterize_and_count(
     image_w: int,
     n_faces: int,
     n_classes: int,
-    return_overflow: bool = False,
-) -> jax.Array:
-    """One view's per-face per-class pixel counts, fused and scatter-free.
+) -> Tuple[jax.Array, jax.Array]:
+    """One view's per-face per-class pixel counts: bin, resolve, then one
+    segment-sum over (face, class) ids (reference meshes.py:1961-1968 +
+    2016-2051).
 
-    The flagship aggregation step (reference meshes.py:1961-1968 +
-    2016-2051): on the pallas backend the raster kernel itself emits
-    per-tile (class, slot) counts alongside pix2face (matching winners
-    against the candidate slabs already in VMEM), and the face-block fold
-    kernels turn them into dense counts — no XLA scatter ever touches a
-    Mosaic output.  The xla backend uses the plain segment-sum.
-
-    Returns (n_faces, n_classes) float32 counts; with ``return_overflow``
-    also an int32 scalar counting EVERY dropped contribution (binning
-    caps + S chunk caps + fold windows) — callers wanting the
-    fail-loudly contract must check it.
+    Returns ((n_faces, n_classes) float32 counts, () int32 candidates
+    dropped by the binning caps).  Callers wanting the fail-loudly
+    contract must check the overflow.
     """
-    binned, sb = bin_all(setup, config, image_h, image_w)
-    over = binned.overflow
-    if sb is not None:
-        over = over + sb.overflow
-    if config.backend == "pallas":
-        from geograypher_tpu.ops import agg_tiled
-
-        outs = fused_counts_pallas(
-            setup, binned, sb, class_image, config, image_h, image_w,
-            n_classes,
-        )
-        counts, fold_over = agg_tiled.fold_tile_counts(
-            outs, binned, config, image_h, image_w, n_faces, n_classes,
-            w_cap=config.fold_w_cap, block=config.fold_block,
-            return_overflow=True,
-        )
-        over = over + fold_over
-        return (counts, over) if return_overflow else counts
     from geograypher_tpu.ops.aggregate import project_image_class_counts
 
-    cand = concat_candidates_for_tiles(binned, config, image_h, image_w)
-    p2f = _raster_tiles_xla(cand, setup.planes, config, image_h, image_w)
+    p2f, binned = rasterize_setup(setup, config, image_h, image_w)
     counts = project_image_class_counts(
         p2f, class_image, n_faces=n_faces, n_classes=n_classes
     )
-    return (counts, over) if return_overflow else counts
-
-
-def fused_counts_pallas(
-    setup: TriangleSetup,
-    binned: BinnedTriangles,
-    sb,
-    class_image: jax.Array,
-    config: RasterConfig,
-    image_h: int,
-    image_w: int,
-    n_classes: int,
-):
-    """One view's fused raster+count kernel chain -> fold-ready ``outs``.
-
-    Without level S: the raster kernel's merged (om, cand2m) pair.  With
-    ``sb`` (level-S binning): the sub-tile z-pass seeds the L0 kernel's
-    carry, the kernel emits pix2face alongside its counts, and the S
-    count kernel matches final winners against the S chunk candidates —
-    ``outs`` grows to (om, cand2m, s_counts, s_ids), which
-    agg_tiled folds as one more entry level.
-    """
-    from geograypher_tpu.ops.pallas_raster import raster_tiles_pallas
-
-    if sb is None:
-        _p2f, outs, _kp = raster_tiles_pallas(
-            binned, setup.planes, config, image_h, image_w,
-            return_tiles=True, class_image=class_image,
-            n_classes=n_classes, return_pix2face=False,
-        )
-        return outs
-    from geograypher_tpu.ops.subtile import (
-        prep_s_slab,
-        s_count_pallas,
-        s_entry_ids,
-        s_raster_pallas,
-    )
-
-    pair, _, ntx0p = l0_geometry(config, image_h, image_w)
-    slab = prep_s_slab(sb, setup.planes, config, ntx0p)
-    s_init = s_raster_pallas(
-        sb, setup.planes, config, image_h, image_w, ntx0p, pair,
-        kb=config.s_kb, slab=slab,
-    )
-    p2f, outs, kp = raster_tiles_pallas(
-        binned, setup.planes, config, image_h, image_w,
-        return_tiles=True, class_image=class_image,
-        n_classes=n_classes, return_pix2face=True, s_init=s_init,
-    )
-    s_counts = s_count_pallas(
-        sb, slab, p2f, class_image, config, image_h, image_w, ntx0p,
-        pair, kp, kb=config.s_kb,
-    )
-    return outs + (s_counts, s_entry_ids(sb, config))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("image_w", "image_h", "config", "n_faces", "use_dist"),
-)
-def probe_fold_window(
-    tri_soa: jax.Array,
-    world_to_cam: jax.Array,
-    f: jax.Array,
-    dist8: jax.Array,
-    pcx: jax.Array,
-    pcy: jax.Array,
-    image_w: int,
-    image_h: int,
-    config: RasterConfig,
-    n_faces: int,
-    use_dist: bool,
-) -> Tuple[jax.Array, jax.Array]:
-    """Worst-case (per-level fold-window demand (4,), per-level nonempty
-    chunk-entry occupancy (3,)) for one view — sizes
-    ``RasterConfig.fold_w_cap`` (per level) and ``entry_caps`` (see
-    ops/agg_tiled.level_fold_windows / entry_occupancy)."""
-    from geograypher_tpu.ops.agg_tiled import (
-        entry_occupancy,
-        level_fold_windows,
-    )
-
-    setup = setup_from_soa(
-        tri_soa, world_to_cam, f, image_w, image_h, config.znear,
-        distortion=(dist8, pcx, pcy) if use_dist else None,
-    )
-    binned, sb = bin_all(setup, config, image_h, image_w)
-    # exact unclipped per-block maxes per fold level (probe cap-free)
-    wins = level_fold_windows(
-        binned, config, image_h, image_w, n_faces, sb=sb
-    )
-    return wins, entry_occupancy(binned, config, image_h, image_w)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("image_w", "image_h", "config", "use_dist"),
-)
-def probe_subtile_census(
-    tri_soa: jax.Array,
-    world_to_cam: jax.Array,
-    f: jax.Array,
-    dist8: jax.Array,
-    pcx: jax.Array,
-    pcy: jax.Array,
-    image_w: int,
-    image_h: int,
-    config: RasterConfig,
-    use_dist: bool,
-):
-    """One view's exact level-S chunk demand ``(total, worst_pair)``.
-
-    Sizes ``RasterConfig.s_cap_chunks`` / ``s_pair_chunks`` for a survey
-    from a probe view (see :func:`size_subtile_caps`); works with an
-    UNsized config (only the subtile geometry fields are read).
-    """
-    from geograypher_tpu.ops.subtile import subtile_counts_census
-
-    setup = setup_from_soa(
-        tri_soa, world_to_cam, f, image_w, image_h, config.znear,
-        distortion=(dist8, pcx, pcy) if use_dist else None,
-    )
-    pair, _nty0p, ntx0p = l0_geometry(config, image_h, image_w)
-    return subtile_counts_census(
-        setup, config, image_h, image_w, ntx0p, pair, kb=config.s_kb
-    )
-
-
-def size_subtile_caps(
-    config: RasterConfig, s_tot: int, s_worst: int, margin: float = 1.5
-) -> RasterConfig:
-    """``config`` with level-S chunk capacities sized from a probe view's
-    census (``margin`` x, kb-aligned).  Unprobed views of the same survey
-    can demand more — undersizing surfaces as ``SubtileBinned.overflow``,
-    which every production consumer raises on (never silent drops)."""
-    kb = config.s_kb
-    s_cap = -(-int(int(s_tot) * margin + kb) // kb) * kb
-    s_pc = -(-int(int(s_worst) * margin + kb) // kb) * kb
-    return dataclasses.replace(
-        config, s_cap_chunks=max(s_cap, kb), s_pair_chunks=max(s_pc, kb)
-    )
+    return counts, binned.overflow
 
 
 @functools.partial(
@@ -1105,66 +687,26 @@ def fused_view_class_counts(
     n_faces: int,
     n_classes: int,
     use_dist: bool,
-) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """One view's (counts, fold_overflow, total_candidates), fully fused.
+) -> Tuple[jax.Array, jax.Array]:
+    """One view's (counts, binning overflow) in ONE program: camera
+    transform + triangle setup + binning + resolve + class counts.
+    ``use_dist`` rasterizes directly in the sensor's distorted pixel space.
 
-    The single-device production aggregation step on TPU: camera
-    transform + triangle setup + binning + the fused raster/count kernel
-    + face-block folds in ONE program — no XLA scatter ever consumes a
-    Mosaic output (docs/DESIGN.md corruption doctrine).  ``use_dist``
-    rasterizes directly in the sensor's distorted pixel space.
-
-    ``fold_overflow > 0`` means ``config.fold_w_cap`` is undersized for
-    this view and counts were dropped — callers must fail loudly.
-    ``total_candidates`` (from the XLA binning stage, trustworthy even
-    when Mosaic outputs corrupt) supports cheap integrity checks.
+    ``overflow > 0`` means ``config.caps`` is undersized for this view and
+    counts were dropped — callers must fail loudly.
     """
-    from geograypher_tpu.ops import agg_tiled
-
     setup = setup_from_soa(
         tri_soa, world_to_cam, f, image_w, image_h, config.znear,
         distortion=(dist8, pcx, pcy) if use_dist else None,
     )
-    binned, sb = bin_all(setup, config, image_h, image_w)
-    if config.backend == "pallas":
-        outs = fused_counts_pallas(
-            setup, binned, sb, class_image, config, image_h, image_w,
-            n_classes,
-        )
-        # the fold's returned overflow covers BOTH dropped window
-        # entries (w_cap) and entry-compaction drops (entry_caps) at
-        # every level of the actual fold — no second window build
-        counts, over = agg_tiled.fold_tile_counts(
-            outs, binned, config, image_h, image_w, n_faces, n_classes,
-            w_cap=config.fold_w_cap, block=config.fold_block,
-            return_overflow=True,
-        )
-        # L0..L3 candidate-cap drops lose counts too: only one view is
-        # probed per survey (check_raster_capacity), so per-view cap
-        # overflow must surface the same way the S and fold drops do
-        over = over + binned.overflow
-        if sb is not None:
-            # S chunk-capacity drops lose counts, same contract
-            over = over + sb.overflow
-    else:
-        from geograypher_tpu.ops.aggregate import project_image_class_counts
-
-        cand = concat_candidates_for_tiles(binned, config, image_h, image_w)
-        p2f = _raster_tiles_xla(cand, setup.planes, config, image_h, image_w)
-        counts = project_image_class_counts(
-            p2f, class_image, n_faces=n_faces, n_classes=n_classes
-        )
-        over = binned.overflow  # cap drops must surface on xla too
-    ncand = sum(jnp.sum(c).astype(jnp.int32) for c in binned.counts)
-    if sb is not None:
-        # S-diverted work counts toward "non-empty rasterization" for
-        # the zero-output corruption guard
-        ncand = ncand + sb.n_chunks
-    return counts, over, ncand
+    return rasterize_and_count(
+        setup, class_image, config, image_h, image_w, n_faces, n_classes
+    )
 
 
 @functools.partial(
-    jax.jit, static_argnames=("image_w", "image_h", "config")
+    jax.jit,
+    static_argnames=("image_w", "image_h", "config", "return_overflow"),
 )
 def rasterize_triangles(
     tri_verts_cam: jax.Array,
@@ -1172,7 +714,8 @@ def rasterize_triangles(
     image_w: int,
     image_h: int,
     config: RasterConfig = RasterConfig(),
-) -> jax.Array:
+    return_overflow: bool = False,
+):
     """One-view pix2face from camera-frame triangles.
 
     Args:
@@ -1180,11 +723,13 @@ def rasterize_triangles(
         f: scalar focal length (pixels).
 
     Returns:
-        (image_h, image_w) int32 face ids, -1 for background.
+        (image_h, image_w) int32 face ids, -1 for background; with
+        ``return_overflow`` also the () int32 count of candidates the
+        binning caps dropped.
     """
     setup = setup_triangles(tri_verts_cam, f, image_w, image_h, config.znear)
-    pix2face, _ = rasterize_setup(setup, config, image_h, image_w)
-    return pix2face
+    pix2face, binned = rasterize_setup(setup, config, image_h, image_w)
+    return (pix2face, binned.overflow) if return_overflow else pix2face
 
 
 def transform_to_camera(tri_verts: jax.Array, world_to_cam: jax.Array) -> jax.Array:
@@ -1192,9 +737,8 @@ def transform_to_camera(tri_verts: jax.Array, world_to_cam: jax.Array) -> jax.Ar
     rot = world_to_cam[:3, :3]
     t = world_to_cam[:3, 3]
     flat = tri_verts.reshape(-1, 3)
-    # Elementwise 3x3 rotate: exact f32 on the VPU, avoiding the MXU's
-    # bf16-rounded f32 matmul (and the 6-pass HIGHEST workaround) for a
-    # K=3 contraction the MXU can't use efficiently anyway.
+    # Elementwise 3x3 rotate: exact f32 FMAs, no matmul precision mode
+    # involved (K=3 has no use for a matrix unit).
     x, y, z = flat[:, 0], flat[:, 1], flat[:, 2]
     out = jnp.stack(
         [
@@ -1233,14 +777,4 @@ def rasterize_batch(
         pix2face, _binned = rasterize_setup(setup, config, image_h, image_w)
         return pix2face
 
-    if config.backend == "pallas":
-        # Mosaic kernels inside lax.scan/map corrupt on the current
-        # runtime (docs/DESIGN.md); unroll the static-length view loop
-        return jnp.stack(
-            [
-                one((world_to_cam[i], f[i]))
-                for i in range(world_to_cam.shape[0])
-            ],
-            axis=0,
-        )
     return jax.lax.map(one, (world_to_cam, f))

@@ -6,7 +6,7 @@ Jitted, branchless port of the reference's
 segments a0->a1 vs M segments b0->b1, the (N, M) closest points on each
 and their distances, with optional clamping to segment ends and full
 parallel-case handling.  The O(N^2) einsum blocks that dominate
-``triangulate_detections`` (SURVEY.md §3.4) run on the MXU; the upper-
+``triangulate_detections`` (SURVEY.md §3.4) run on the device; the upper-
 triangular block iteration of the reference (numeric.py:350-377) is kept
 host-side for memory control at very large N.
 """
@@ -19,6 +19,11 @@ import typing
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+
+# every geometry contraction asks for full float32: a float32 matmul may
+# otherwise run in TF32 on the GPU
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.partial(jax.jit, static_argnames=("clamp",))
@@ -42,8 +47,8 @@ def _pairwise_closest(a0, a1, b0, b1, clamp: bool):
     safe_denom = jnp.where(parallel, 1.0, denom)
 
     t = b0e - a0e
-    detA = jnp.einsum("ijk,ijk->ij", jnp.cross(t, uBe), cross)
-    detB = jnp.einsum("ijk,ijk->ij", jnp.cross(t, uAe), cross)
+    detA = jnp.einsum("ijk,ijk->ij", jnp.cross(t, uBe), cross, precision=_HIGHEST)
+    detB = jnp.einsum("ijk,ijk->ij", jnp.cross(t, uAe), cross, precision=_HIGHEST)
     t0 = detA / safe_denom
     t1 = detB / safe_denom
 
@@ -56,7 +61,7 @@ def _pairwise_closest(a0, a1, b0, b1, clamp: bool):
         oob_B = (t1 < 0) | (t1 > magB[None, :])
         # reproject the clamped A point onto B (where A was clamped)...
         dotB = jnp.clip(
-            jnp.einsum("ijk,ijk->ij", pA - b0e, jnp.broadcast_to(uBe, pA.shape)),
+            jnp.einsum("ijk,ijk->ij", pA - b0e, jnp.broadcast_to(uBe, pA.shape), precision=_HIGHEST),
             0.0,
             magB[None, :],
         )
@@ -65,7 +70,7 @@ def _pairwise_closest(a0, a1, b0, b1, clamp: bool):
         )
         # ...then the (possibly updated) B point onto A (where B was clamped)
         dotA = jnp.clip(
-            jnp.einsum("ijk,ijk->ij", pB - a0e, jnp.broadcast_to(uAe, pB.shape)),
+            jnp.einsum("ijk,ijk->ij", pB - a0e, jnp.broadcast_to(uAe, pB.shape), precision=_HIGHEST),
             0.0,
             magA[:, None],
         )
@@ -75,10 +80,10 @@ def _pairwise_closest(a0, a1, b0, b1, clamp: bool):
 
         # Parallel segments: before / after / overlapping-middle cases
         # (reference numeric.py:157-227)
-        d0 = jnp.einsum("ij,kj->ik", uA, b0) - jnp.einsum("ij,ij->i", uA, a0)[
+        d0 = jnp.einsum("ij,kj->ik", uA, b0, precision=_HIGHEST) - jnp.einsum("ij,ij->i", uA, a0, precision=_HIGHEST)[
             :, None
         ]
-        d1 = jnp.einsum("ij,kj->ik", uA, b1) - jnp.einsum("ij,ij->i", uA, a0)[
+        d1 = jnp.einsum("ij,kj->ik", uA, b1, precision=_HIGHEST) - jnp.einsum("ij,ij->i", uA, a0, precision=_HIGHEST)[
             :, None
         ]
         before = (d0 <= 0) & (d1 <= 0) & parallel
@@ -103,7 +108,7 @@ def _pairwise_closest(a0, a1, b0, b1, clamp: bool):
         t_mid = jnp.clip(d0, 0.0, magA[:, None])
         pA_mid = a0b + t_mid[..., None] * uAb
         a2b = b0b - pA_mid
-        along = jnp.einsum("ijk,ijk->ij", a2b, uAb)[..., None] * uAb
+        along = jnp.einsum("ijk,ijk->ij", a2b, uAb, precision=_HIGHEST)[..., None] * uAb
         pB_mid = pA_mid + (a2b - along)
         pA = jnp.where(middle[..., None], pA_mid, pA)
         pB = jnp.where(middle[..., None], pB_mid, pB)
@@ -111,7 +116,7 @@ def _pairwise_closest(a0, a1, b0, b1, clamp: bool):
         pA = a0e + t0[..., None] * uAe
         pB = b0e + t1[..., None] * uBe
         # parallel: arbitrarily b0 and its projection onto A
-        d0 = jnp.einsum("ij,kj->ik", uA, b0) - jnp.einsum("ij,ij->i", uA, a0)[
+        d0 = jnp.einsum("ij,kj->ik", uA, b0, precision=_HIGHEST) - jnp.einsum("ij,ij->i", uA, a0, precision=_HIGHEST)[
             :, None
         ]
         pA_par = jnp.broadcast_to(a0e, pA.shape) + d0[..., None] * jnp.broadcast_to(

@@ -6,15 +6,15 @@ only scale mechanism is sequential spatial chunking
 that decomposition becomes a sharding strategy:
 
 * mesh geometry (triangle vertices / planes) is REPLICATED — 1M faces x
-  (3, 3) f32 = 36 MB, comfortably within HBM;
+  (3, 3) f32 = 36 MB, comfortably within device memory;
 * cameras/views are SHARDED over the "views" mesh axis (the natural data
   axis: a survey has hundreds-thousands of views);
 * per-face accumulators are computed per device and combined with a
-  ``psum`` over ICI — the chunked-mesh scatter-add (derived_meshes.py:292-302)
+  ``psum`` across devices — the chunked-mesh scatter-add (derived_meshes.py:292-302)
   reborn as a collective.
 
 ``shard_map`` is used rather than relying on GSPMD sharding propagation:
-the rasterizer's per-view pipeline (sort, searchsorted, pallas_call) is
+the rasterizer's per-view pipeline (sort, searchsorted, resolve kernel) is
 explicitly per-device work, not something to be partitioned op-by-op.
 """
 
@@ -74,7 +74,7 @@ def sharded_render_aggregate(
     """The flagship multi-chip step: every device rasterizes its shard of
     views, renders the face texture into them, folds each view's pixels
     back into per-face (sum, count) accumulators, and the partial
-    accumulators are psum-combined over ICI.
+    accumulators are psum-combined across devices.
 
     This is a self-contained render->aggregate round trip (the benchmark
     workload and the parity oracle).  Real prediction aggregation uses the
@@ -129,11 +129,9 @@ def sharded_render_aggregate(
 def unrolled_view_scan(f, init, xs):
     """``lax.scan`` stand-in, python-unrolled over the leading axis.
 
-    Mosaic (pallas) kernels inside a ``lax.scan`` body yield corrupted
-    large per-iteration outputs on the current TPU runtime (measured;
-    docs/DESIGN.md "Mosaic operand-fusion hazard") while the identical
-    unrolled program is correct.  Per-device view loops are short, so
-    unrolling costs only compile time.
+    Per-device view loops are short, so unrolling costs only compile
+    time; whether a ``lax.scan`` body compiles faster at the same run
+    time is an open measurement.
     """
     n = jax.tree_util.tree_leaves(xs)[0].shape[0]
     carry = init

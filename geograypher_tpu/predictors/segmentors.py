@@ -89,8 +89,7 @@ class LookUpSegmentor(Segmentor):
         self.lookup_folder = Path(lookup_folder)
 
     def segment_image(self, image, filename=None, image_scale: float = 1.0, **kw):
-        import cv2
-
+        from geograypher_tpu.utils.image import resize_nearest
         from geograypher_tpu.utils.io import read_image_or_numpy
 
         try:
@@ -123,10 +122,7 @@ class LookUpSegmentor(Segmentor):
             h = int(round(labels.shape[0] * image_scale))
             w = int(round(labels.shape[1] * image_scale))
         if labels.shape != (h, w):
-            labels = cv2.resize(
-                labels.astype(np.float32), (w, h),
-                interpolation=cv2.INTER_NEAREST,
-            )
+            labels = resize_nearest(labels, h, w)
         return self.inds_to_one_hot(labels.astype(float), self.num_classes)
 
 

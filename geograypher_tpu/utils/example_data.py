@@ -37,22 +37,41 @@ def make_metashape_xml(
     cam_to_worlds,
     image_names,
     local_to_ecef: np.ndarray,
-    f: float,
+    f,
     width: int,
     height: int,
     cx: float = 0.0,
     cy: float = 0.0,
     distortion: Optional[dict] = None,
+    sensor_ids=None,
 ) -> str:
-    """Serialize cameras into the Metashape XML schema the parser reads."""
+    """Serialize cameras into the Metashape XML schema the parser reads.
+
+    ``f`` is one focal length, or a sequence of them — one sensor each —
+    with ``sensor_ids`` giving every camera's index into it.
+    """
+    focals = np.atleast_1d(np.asarray(f, np.float64))
+    if sensor_ids is None:
+        sensor_ids = [0] * len(image_names)
     dist_tags = "".join(
         f"<{k}>{v}</{k}>" for k, v in (distortion or {}).items()
     )
+    sensors = "\n".join(
+        f'<sensor id="{si}" label="synthetic{si}" type="frame">'
+        f'<resolution width="{width}" height="{height}"/>'
+        f'<calibration type="frame" class="adjusted">'
+        f'<resolution width="{width}" height="{height}"/>'
+        f"<f>{fi:.17g}</f><cx>{cx}</cx><cy>{cy}</cy>{dist_tags}"
+        f"</calibration></sensor>"
+        for si, fi in enumerate(focals)
+    )
     cams = "\n".join(
-        f'<camera id="{i}" sensor_id="0" label="{name}">'
+        f'<camera id="{i}" sensor_id="{si}" label="{name}">'
         f'<transform>{" ".join(f"{float(v):.17g}" for v in np.asarray(t).flatten())}'
         f"</transform></camera>"
-        for i, (t, name) in enumerate(zip(cam_to_worlds, image_names))
+        for i, (t, name, si) in enumerate(
+            zip(cam_to_worlds, image_names, sensor_ids)
+        )
     )
     rot = " ".join(f"{float(v):.17g}" for v in local_to_ecef[:3, :3].flatten())
     tra = " ".join(f"{float(v):.17g}" for v in local_to_ecef[:3, 3])
@@ -60,17 +79,8 @@ def make_metashape_xml(
         f"""\
         <document version="2.0.0">
           <chunk label="Chunk 1" enabled="true">
-            <sensors next_id="1">
-              <sensor id="0" label="synthetic" type="frame">
-                <resolution width="{width}" height="{height}"/>
-                <calibration type="frame" class="adjusted">
-                  <resolution width="{width}" height="{height}"/>
-                  <f>{f}</f>
-                  <cx>{cx}</cx>
-                  <cy>{cy}</cy>
-                  {dist_tags}
-                </calibration>
-              </sensor>
+            <sensors next_id="{len(focals)}">
+              {sensors}
             </sensors>
             <cameras next_id="{len(image_names)}" next_group_id="0">
               {cams}

@@ -123,10 +123,7 @@ def partitioned_face_order(
         return_split: also return the NEW index of the first oversized
             face (== number of regular faces).  Pass it to
             ``RasterConfig.global_from`` so the binning pins the
-            oversized tail to the global level — a far-field giant that
-            binned to L0 would put its trailing id into local tiles'
-            chunk entries and explode the face-block fold windows
-            (measured 699 -> 14,774 on the benchmark TIN).
+            oversized tail to the global level.
 
     Returns ``order`` with ``new_faces = faces[order]`` — or
     ``(order, n_regular)`` with ``return_split`` (``n_regular ==

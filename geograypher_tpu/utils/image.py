@@ -15,6 +15,21 @@ from geograypher_tpu.constants import PATH_TYPE
 from geograypher_tpu.utils.numeric import rotation_rpy_to_matrix
 
 
+def resize_nearest(image: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Nearest-neighbour resize of the first two axes to (height, width)
+    with ``cv2.INTER_NEAREST``'s sampling (source index
+    ``floor(dst * src / dst)``), in numpy: label rasters keep their exact
+    values and no optional image library is needed."""
+    src_h, src_w = image.shape[:2]
+    rows = np.minimum(
+        (np.arange(height) * (src_h / height)).astype(np.int64), src_h - 1
+    )
+    cols = np.minimum(
+        (np.arange(width) * (src_w / width)).astype(np.int64), src_w - 1
+    )
+    return image[rows[:, None], cols[None, :]]
+
+
 def get_GPS_exif(image_filename: PATH_TYPE) -> typing.Optional[tuple]:
     """(lon, lat) from EXIF GPS tags (reference image.py:10-27), via PIL."""
     from PIL import ExifTags, Image

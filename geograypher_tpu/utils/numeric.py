@@ -123,8 +123,7 @@ def hilbert_argsort_2d(points: np.ndarray, bits: int = 16) -> np.ndarray:
     """Order that sorts 2D points along a Hilbert curve.
 
     Spatially coherent orderings make every raster tile's candidate face
-    ids a narrow band, which the scatter-free aggregation
-    (ops/agg_tiled.py) and the rasterizer's windowed folds exploit.  The
+    ids a narrow band, which the rasterizer's block binning exploits.  The
     Hilbert curve bounds the id band of a w x h query box by O(w * h)
     with a small constant — unlike raw row-major order (band ~ h * row
     stride) or Morton order (band ~ enclosing power-of-two square).

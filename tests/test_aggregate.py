@@ -4,6 +4,7 @@ render per-face labels into views, aggregate them back, recover the labels.
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from geograypher_tpu.ops.aggregate import (
     accumulate_view,
@@ -139,3 +140,32 @@ def test_round_trip_parity():
     # per-face mean is over pixels of a single face -> the label itself.
     assert np.allclose(avg[observed], labels[observed])
     assert np.all(np.isnan(avg[~observed]))
+
+
+@pytest.mark.parametrize(
+    "seed, n_faces, n_classes", [(0, 50, 3), (1, 1000, 10), (2, 7, 1)]
+)
+def test_class_counts_match_bincount(seed, n_faces, n_classes):
+    """The segment-sum counts equal np.bincount over (face, class) ids;
+    background faces and out-of-range classes are dropped."""
+    rng = np.random.default_rng(seed)
+    p2f = rng.integers(-1, n_faces, (37, 53)).astype(np.int32)
+    cls = rng.integers(-2, n_classes + 2, (37, 53)).astype(np.int32)
+    counts = np.asarray(
+        project_image_class_counts(p2f, cls, n_faces=n_faces,
+                                   n_classes=n_classes)
+    )
+    ok = (p2f >= 0) & (cls >= 0) & (cls < n_classes)
+    ref = np.bincount(
+        p2f[ok].astype(np.int64) * n_classes + cls[ok],
+        minlength=n_faces * n_classes,
+    ).reshape(n_faces, n_classes)
+    np.testing.assert_array_equal(counts, ref)
+
+
+def test_class_counts_flat_index_guard():
+    """(face, class) ids past int32 would wrap negative and be dropped
+    silently: refused instead."""
+    p2f = jnp.zeros((2, 2), jnp.int32)
+    with pytest.raises(ValueError, match="int32"):
+        project_image_class_counts(p2f, p2f, n_faces=2**28, n_classes=8)

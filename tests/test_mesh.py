@@ -15,7 +15,7 @@ from geograypher_tpu.utils import crs as crs_utils
 from geograypher_tpu.utils.fixtures import make_grid_mesh, nadir_camera
 from geograypher_tpu.utils.vector import Polygon, VectorData
 
-CFG = RasterConfig(caps=(512, 64, 32, 16), backend="xla")
+CFG = RasterConfig(caps=(512, 64, 32, 16))
 
 # A survey site near (lat 36, lon -119), UTM zone 11N
 SITE_LAT, SITE_LON = 36.0, -119.0
@@ -147,7 +147,6 @@ def test_aggregate_projected_images_planned_routing():
     planned weighted path and agree with the streaming loop; 'auto' on a
     tiny survey must stay streaming (below the amortization threshold)."""
     mesh, _ = make_geo_mesh(n=15, size=40.0)
-    mesh.raster_config = dataclasses.replace(CFG, backend="pallas")
     cams = local_camera_set(mesh, n_cams=3)
     rng = np.random.default_rng(1)
     face_labels = rng.integers(0, 4, mesh.n_faces).astype(float)
@@ -303,7 +302,7 @@ def test_check_raster_capacity():
     cams = local_camera_set(mesh, n_cams=1, sensor=64, focal=32.0)
     assert mesh.check_raster_capacity(cams) == 0
     # absurdly small caps must report overflow
-    tiny = RasterConfig(caps=(8, 8, 8, 8), backend="xla")
+    tiny = RasterConfig(caps=(8, 8, 8, 8))
     assert mesh.check_raster_capacity(cams, config=tiny) > 0
 
 
@@ -415,13 +414,17 @@ def test_spatial_sort_faces_morton_locality():
     assert np.median(step) < 2 * cell
 
 
-def test_aggregate_fused_pallas_matches_xla_path():
-    """The pallas-backend single-device aggregation (fused scatter-free
-    chain, the production TPU structure) must match the XLA segment-sum
-    path exactly for one-hot segmentor images."""
-    import dataclasses
-
+def test_aggregate_class_counts_match_per_channel_path():
+    """The class-count route for one-hot segmentor images (one segment-sum
+    over (face, class) ids per view) must match the general per-channel
+    mean path (``project_image_to_faces`` over the one-hot stack)."""
     from geograypher_tpu.cameras.segmentor_set import SegmentorCameraSet
+    from geograypher_tpu.ops.aggregate import (
+        accumulate_view,
+        finalize_aggregation,
+        init_aggregation,
+        project_image_to_faces,
+    )
     from geograypher_tpu.predictors.segmentors import ArraySegmentor
 
     mesh, _ = make_geo_mesh(n=15, size=40.0)
@@ -433,18 +436,22 @@ def test_aggregate_fused_pallas_matches_xla_path():
     seg = ArraySegmentor([r[..., 0] for r in renders], num_classes=4)
     seg_cams = SegmentorCameraSet(cams, seg)
 
-    avg_xla, info_xla = mesh.aggregate_projected_images(seg_cams)
+    avg_cls, info_cls = mesh.aggregate_projected_images(seg_cams)
 
-    mesh.raster_config = dataclasses.replace(CFG, backend="pallas")
-    avg_pal, info_pal = mesh.aggregate_projected_images(seg_cams)
-    mesh.raster_config = CFG
+    state = init_aggregation(mesh.n_faces, 4)
+    for i in range(len(cams)):
+        p2f = mesh.pix2face(cams, [i])[0]
+        img = np.asarray(seg_cams.get_image_by_index(i), np.float32)
+        sums, counts = project_image_to_faces(p2f, img, mesh.n_faces)
+        state = accumulate_view(state, sums, counts)
+    avg_ch = np.asarray(finalize_aggregation(state))
 
-    assert np.allclose(
-        info_pal["projection_counts"], info_xla["projection_counts"]
+    np.testing.assert_array_equal(
+        info_cls["projection_counts"], np.asarray(state.view_count)
     )
-    assert np.allclose(avg_pal, avg_xla, atol=1e-5, equal_nan=True)
-    observed = info_pal["projection_counts"] > 0
-    pred = np.argmax(avg_pal, axis=1).astype(float)
+    assert np.allclose(avg_cls, avg_ch, atol=1e-5, equal_nan=True)
+    observed = info_cls["projection_counts"] > 0
+    pred = np.argmax(avg_cls, axis=1).astype(float)
     assert (pred[observed] == face_labels[observed]).mean() > 0.99
 
 

@@ -1,10 +1,9 @@
 """Census-bucketed aggregation planner (parallel/planner.py).
 
-The library-resident flagship plan (VERDICT r4 #1) must reproduce the
-exact per-view fused counts, survive sampled census via the overflow
-resize-retry doctrine (VERDICT r4 #6), and never raise after partial
-work.  Reference result: per-view ``fused_view_class_counts`` under
-generous static caps, summed on host.
+The library-resident flagship plan must reproduce the exact per-view
+counts, survive undersized caps via the overflow resize-retry doctrine,
+and never raise after partial work.  Reference result: per-view
+``fused_view_class_counts`` under generous static caps, summed on host.
 """
 
 import dataclasses
@@ -35,10 +34,7 @@ from geograypher_tpu.utils.fixtures import (
 H, W = 96, 256
 N_CLASSES = 5
 N_VIEWS = 6
-BASE = RasterConfig(
-    caps=(32, 16, 16, 16), backend="pallas", bin_block=8, l0_window=(5, 2),
-    fold_block=4096,
-)
+BASE = RasterConfig(caps=(32, 16, 16, 16), bin_block=8, l0_window=(5, 2))
 
 
 @pytest.fixture(scope="module")
@@ -82,13 +78,11 @@ def scene():
 
 def _reference_counts(tri, f_pad, params, labels):
     """Per-view fused counts under generous caps, summed on host."""
-    cfg = dataclasses.replace(
-        BASE, caps=(64, 32, 32, 32), fold_w_cap=504, fold_block=4096
-    )
+    cfg = dataclasses.replace(BASE, caps=(64, 32, 32, 32))
     total = np.zeros((f_pad, N_CLASSES), np.float64)
     for k in range(params.shape[0]):
         row = jnp.asarray(params[k])
-        counts, over, _ = fused_view_class_counts(
+        counts, over = fused_view_class_counts(
             tri, row[:16].reshape(4, 4), row[16], row[17:25], row[25],
             row[26], jnp.asarray(labels[k]), W, H, cfg, f_pad, N_CLASSES,
             False,
@@ -121,25 +115,38 @@ def test_bucketing_splits_nadir_oblique(scene):
     cover = plan.cover_config
     for b in plan.buckets:
         assert all(c >= bc for c, bc in zip(cover.caps, b.config.caps))
-    assert cover.entry_caps is None and cover.occ_pairs is None
-    # sized fields are present on every bucket
+    # the plan split the mixed survey by caps
+    assert len(plan.buckets) >= 2
+    assert len({b.config.caps for b in plan.buckets}) == len(plan.buckets)
+
+
+def test_census_caps_cover_every_view(scene):
+    """An exact census sizes each bucket's caps to cover every one of its
+    views: binning under the bucket config drops nothing."""
+    from geograypher_tpu.ops.rasterize import bin_triangles, setup_from_soa
+
+    tri, f_pad, params, labels = scene
+    plan = plan_aggregation(tri, params, BASE, H, W, f_pad, max_buckets=4)
+    assert not plan.sampled
     for b in plan.buckets:
-        assert b.config.entry_caps is not None
-        assert b.config.occ_pairs is not None
-        assert len(b.max_win) == 4 and all(v >= 0 for v in b.max_win)
+        for k in b.view_indices:
+            row = jnp.asarray(params[k])
+            setup = setup_from_soa(
+                tri, row[:16].reshape(4, 4), row[16], W, H
+            )
+            binned = bin_triangles(setup, b.config, H, W)
+            assert int(binned.overflow) == 0
 
 
 def _reference_weighted(tri, f_pad, params, labels):
     """Per-view fused counts normalized per face (f32, like the device),
     averaged over seeing views: (value_sum, view_count)."""
-    cfg = dataclasses.replace(
-        BASE, caps=(64, 32, 32, 32), fold_w_cap=504, fold_block=4096
-    )
+    cfg = dataclasses.replace(BASE, caps=(64, 32, 32, 32))
     value_sum = np.zeros((f_pad, N_CLASSES), np.float32)
     view_count = np.zeros((f_pad,), np.float32)
     for k in range(params.shape[0]):
         row = jnp.asarray(params[k])
-        counts, over, _ = fused_view_class_counts(
+        counts, over = fused_view_class_counts(
             tri, row[:16].reshape(4, 4), row[16], row[17:25], row[25],
             row[26], jnp.asarray(labels[k]), W, H, cfg, f_pad, N_CLASSES,
             False,
@@ -174,15 +181,10 @@ def test_weighted_planned_matches_reference(scene):
     np.testing.assert_allclose(value_sum, ref_vs, rtol=1e-6, atol=1e-7)
 
 
-def test_global_level_window_sizing():
+def test_global_level_planning():
     """Meshes with a non-empty GLOBAL census level (irregular TINs with
-    locally large faces) must plan per-level fold windows: the merged
-    L2+global level's per-block window demand outgrows L0's (every
-    global chunk's id band spans the mesh and is replicated into every
-    L2 tile), so an L0-only probe undersizes the grouped fold — the
-    round-5 irregular benchmark overflowed ~1000 entries at its planned
-    caps and thrashed the group-size fallback.  Regression: plan +
-    grouped run completes with ZERO resizes and exact counts."""
+    locally large faces): the census sizes the global list's cap too, so
+    plan + grouped run completes with ZERO resizes and exact counts."""
     from geograypher_tpu.utils.fixtures import make_irregular_mesh
 
     h, w = 96, 512
@@ -233,21 +235,16 @@ def test_global_level_window_sizing():
         )
     )
     plan = plan_aggregation(tri, params, cfg, h, w, f_pad, max_buckets=2)
-    # the global level must actually be exercised, and the L2+global
-    # window must be tracked independently of L0's
-    assert any(b.max_win[2] > 0 for b in plan.buckets)
     agg = PlannedAggregator(plan, N_CLASSES, group=4)
     agg.prepare(tri, params, labels)
     agg.run()
     counts = agg.finalize()
-    assert agg.resizes == 0, "per-level window sizing must avoid resizes"
-    ref_cfg = dataclasses.replace(
-        cfg, caps=(64, 32, 32, 48), fold_w_cap=504
-    )
+    assert agg.resizes == 0, "an exact census must never resize"
+    ref_cfg = dataclasses.replace(cfg, caps=(64, 32, 32, 48))
     ref = np.zeros_like(counts)
     for k in range(4):
         row = jnp.asarray(params[k])
-        c, over, _ = fused_view_class_counts(
+        c, over = fused_view_class_counts(
             tri, row[:16].reshape(4, 4), row[16], row[17:25], row[25],
             row[26], jnp.asarray(labels[k]), w, h, ref_cfg, f_pad,
             N_CLASSES, False,
@@ -257,71 +254,32 @@ def test_global_level_window_sizing():
     np.testing.assert_array_equal(counts, ref)
 
 
-def test_group_w_cap_airtight_bound():
-    """Merged-group fold windows are NOT subadditive in per-view maxima
-    (a wide-band global entry extends every block's contiguous
-    tmax-sorted range past other views' entries): the round-5 irregular
-    benchmark overflowed its grouped L2+global fold by 1080 entries at
-    the ``g x max x margin`` estimate — exactly the gap to the views'
-    total entry rows.  With entry compaction on, the merged level holds
-    exactly ``g * entry_caps[l]`` rows and no window can exceed the
-    total, so the sizing must use that airtight product wherever it is
-    affordable (every level but L0)."""
-    from geograypher_tpu.parallel.planner import _group_w_cap
-
-    # the irregular-TIN benchmark's own numbers: bucket (64,16,16,64),
-    # max windows (696, 12, 79, 0), entry caps (23376, 72, 176), g=14
-    caps = _group_w_cap(
-        14, (696, 12, 79, 0), 1.25, entry_caps=(23376, 72, 176)
-    )
-    # L0: the airtight product (327k) is unaffordable -> margined estimate
-    assert caps[0] == 8 * ((int(np.ceil(14 * 696 * 1.25)) + 7) // 8)
-    # L1/L2: airtight -> overflow structurally impossible
-    assert caps[1] == 14 * 72
-    assert caps[2] == 14 * 176  # old estimate was 1384; demand was ~2464
-    assert caps[3] == 8
-    # without entry caps the estimate stands (legacy callers)
-    legacy = _group_w_cap(14, (696, 12, 79, 0), 1.25)
-    assert legacy[2] == 8 * ((int(np.ceil(14 * 79 * 1.25)) + 7) // 8)
-
-
-def test_warm_overflow_widens_windows(scene, caplog):
-    """A warm-check window overflow must widen the fold windows by the
-    measured dropped-entry total and KEEP the group size (the round-5
-    irregular TIN overflowed every group size's margined L0 estimate —
-    falling to smaller groups both lost the launch amortization and
-    still overflowed).  Shrinking the plan's probed max_win simulates
-    the under-estimate; the result must stay exact."""
+def test_undersized_bucket_caps_retry(scene, caplog):
+    """Groups whose bucket caps are too small drop candidates: their
+    contribution is gated to zero, and finalize re-censuses and re-runs
+    exactly those views, so the result stays exact."""
     import logging as _logging
 
     tri, f_pad, params, labels = scene
     plan = plan_aggregation(tri, params, BASE, H, W, f_pad, max_buckets=1)
     b = plan.buckets[0]
-    # sabotage the probe: claim tiny per-view windows AND disable entry
-    # compaction (at this scene's scale the airtight g*entry_caps bound
-    # is affordable at every level and would make overflow structurally
-    # impossible — at bench scale L0's is not, which is exactly the
-    # irregular-TIN failure this retries out of)
     bad = dataclasses.replace(
         plan,
         buckets=(
             dataclasses.replace(
-                b,
-                max_win=(8, 0, 0, 0),
-                config=dataclasses.replace(b.config, entry_caps=None),
+                b, config=dataclasses.replace(b.config, caps=(8, 4, 4, 4))
             ),
         ),
     )
     agg = PlannedAggregator(bad, N_CLASSES, group=3)
+    agg.prepare(tri, params, labels)
+    agg.run()
     with caplog.at_level(
         _logging.WARNING, logger="geograypher_tpu.parallel.planner"
     ):
-        agg.prepare(tri, params, labels)
-    assert any("widening fold windows" in r.message for r in caplog.records)
-    # the group size survived the widen-retry
-    assert all(g == 3 for _s, g, _b in agg._programs)
-    agg.run()
-    counts = agg.finalize()
+        counts = agg.finalize()
+    assert any("re-censusing" in r.message for r in caplog.records)
+    assert agg.resizes == 1
     np.testing.assert_array_equal(
         counts, _reference_counts(tri, f_pad, params, labels)
     )
@@ -332,11 +290,7 @@ def test_sampled_census_retry_completes(scene):
     """A sampled census that only sees a benign (nadir) view must still
     produce exact counts: hostile views overflow, their groups contribute
     zero, and finalize re-censuses + re-runs them (never raises, never
-    drops counts).  The warm check stays ON: a warm-group CAP overflow on
-    a sampled plan must be tolerated (neither widening fold windows nor a
-    smaller group can fix an un-censused view exceeding the bucket caps —
-    conflating the overflow kinds burned ~17 grouped compiles and OOMed
-    three bench metrics in round 5)."""
+    drops counts)."""
     tri, f_pad, params, labels = scene
     # order the views nadir-first so sample index 0 censuses a nadir view
     plan = plan_aggregation(
@@ -346,7 +300,6 @@ def test_sampled_census_retry_completes(scene):
     assert plan.sampled
     agg = PlannedAggregator(plan, N_CLASSES, group=2)
     agg.prepare(tri, params, labels)
-    # the warm cap overflow must NOT have shrunk the group size
     assert all(g == 2 for _s, g, _b in agg._programs)
     agg.run()
     counts = agg.finalize()
@@ -372,7 +325,7 @@ def test_label_index_shares_rows(scene):
 @pytest.mark.slow
 def test_mesh_planned_aggregation(scene):
     """TexturedMesh.aggregate_class_images_planned: the flagship plan
-    through the public mesh API (VERDICT r4 #1), with plan caching."""
+    through the public mesh API, with plan caching."""
     from geograypher_tpu.cameras.core import CameraSet
     from geograypher_tpu.meshes.mesh import TexturedMesh
 

@@ -272,7 +272,7 @@ def test_setup_from_soa_distortion():
 
     H, W = 160, 256
     focal = 150.0
-    config = RasterConfig(caps=(128, 64, 32, 32), backend="xla")
+    config = RasterConfig(caps=(128, 64, 32, 32))
     verts, faces = make_grid_mesh(n=41, size=4.0)
     tri_soa = jnp.asarray(
         tri_to_soa(gather_tri_verts(verts, faces).astype(np.float32))

@@ -110,7 +110,7 @@ def test_distributed_pipeline_matches_single_device():
     assert (pred[observed] == labels[observed]).all()
 
 
-def _pipeline_scene(n_views=5, backend="pallas", seed=5):
+def _pipeline_scene(n_views=5, seed=5):
     from geograypher_tpu.cameras.core import CameraSet
     from geograypher_tpu.cameras.segmentor_set import SegmentorCameraSet
     from geograypher_tpu.meshes.mesh import TexturedMesh
@@ -118,7 +118,7 @@ def _pipeline_scene(n_views=5, backend="pallas", seed=5):
 
     rng = np.random.default_rng(seed)
     verts, faces = make_grid_mesh(n=13, size=4.0)
-    cfg = RasterConfig(caps=(256, 64, 32, 16), backend=backend)
+    cfg = RasterConfig(caps=(256, 64, 32, 16))
     mesh = TexturedMesh((verts, faces), raster_config=cfg)
     labels = rng.integers(0, 3, mesh.n_faces).astype(float)
     mesh.set_texture(labels, is_vertex=False)
@@ -139,14 +139,13 @@ def _pipeline_scene(n_views=5, backend="pallas", seed=5):
 
 @pytest.mark.slow
 def test_distributed_pipeline_fused_backend_matches():
-    """The FUSED (pallas) grouped pipeline — the production TPU path —
-    must match the single-device aggregation exactly, with the integrity
-    guards enabled."""
+    """The grouped pipeline with several views per device step must match
+    the single-device aggregation exactly."""
     from geograypher_tpu.parallel.pipeline import (
         aggregate_class_images_distributed,
     )
 
-    mesh, cams, seg_cams, labels = _pipeline_scene(backend="pallas")
+    mesh, cams, seg_cams, labels = _pipeline_scene()
     frac_sums, views = aggregate_class_images_distributed(
         mesh, seg_cams, n_classes=3, views_per_step=2,
     )
@@ -160,26 +159,25 @@ def test_distributed_pipeline_fused_backend_matches():
     assert (pred[observed] == labels[observed]).all()
 
 
-def test_pipeline_resizes_on_undersized_fold_capacity(caplog):
-    """Deliberately undersized fold windows must trigger the
-    resize-and-retry path (VERDICT r4 #6) and still produce EXACT counts
-    — never raise after partial work, never silently drop counts."""
+def test_pipeline_resizes_on_undersized_caps(caplog):
+    """Deliberately undersized binning caps must trigger the
+    resize-and-retry path and still produce EXACT counts — never raise
+    after partial work, never silently drop counts."""
     import logging
 
     from geograypher_tpu.parallel.pipeline import (
         aggregate_class_images_distributed,
     )
 
-    mesh, cams, seg_cams, labels = _pipeline_scene(backend="pallas")
+    mesh, cams, seg_cams, labels = _pipeline_scene()
     import dataclasses
 
-    undersized = dataclasses.replace(mesh.raster_config, fold_w_cap=8)
+    undersized = dataclasses.replace(mesh.raster_config, caps=(8, 4, 4, 4))
     with caplog.at_level(
         logging.WARNING, logger="geograypher_tpu.parallel.pipeline"
     ):
         frac_sums, views = aggregate_class_images_distributed(
-            mesh, seg_cams, n_classes=3, auto_size_fold=False,
-            integrity_check=False, config=undersized,
+            mesh, seg_cams, n_classes=3, plan_caps=False, config=undersized,
         )
     assert any("re-censusing" in r.message for r in caplog.records)
     avg, info = mesh.aggregate_projected_images(seg_cams)
@@ -192,10 +190,10 @@ def test_pipeline_resizes_on_undersized_fold_capacity(caplog):
 
 @pytest.mark.slow
 def test_pipeline_benign_first_hostile_later(caplog):
-    """A survey whose FIRST step (the one the capacities are probed on)
-    is benign nadir and whose LATER steps contain a hostile oblique must
-    complete with correct counts, re-sizing only the offending steps
-    (VERDICT r4 #6 done-criterion)."""
+    """A survey whose FIRST step is benign nadir and whose LATER steps
+    contain a hostile oblique must complete with correct counts under
+    caps that fit only the nadir views, re-sizing only the offending
+    steps."""
     import dataclasses
     import logging
 
@@ -206,7 +204,8 @@ def test_pipeline_benign_first_hostile_later(caplog):
         aggregate_class_images_distributed,
     )
     from geograypher_tpu.parallel.planner import (
-        _build_window_stats,
+        _build_census,
+        census_config_of,
         pack_camera_batch,
     )
     from geograypher_tpu.predictors.segmentors import ArraySegmentor
@@ -216,7 +215,7 @@ def test_pipeline_benign_first_hostile_later(caplog):
     verts, faces = make_grid_mesh(
         n=13, size=4.0, z_fn=lambda x, y: 0.1 * np.sin(3 * x)
     )
-    cfg = RasterConfig(caps=(256, 64, 32, 16), backend="pallas")
+    cfg = RasterConfig(caps=(256, 64, 32, 16))
     mesh = TexturedMesh((verts, faces), raster_config=cfg)
     labels = rng.integers(0, 3, mesh.n_faces).astype(float)
     mesh.set_texture(labels, is_vertex=False)
@@ -239,24 +238,19 @@ def test_pipeline_benign_first_hostile_later(caplog):
         {0: sensor0, 1: dict(sensor0, f=55.0)},
         sensor_IDs=[0] * 8 + [1] * 4,
     )
-    # measure the true per-view fold-window demands and pick a static
-    # capacity that covers every nadir view but NOT the obliques
+    # census the true per-view tile occupancy and pick caps that cover
+    # every nadir view but NOT the obliques
     batch = cams.get_camera_batch()
     params = pack_camera_batch(batch, np.ones(12, np.float32))
     tri_soa = mesh._tri_soa_device(cams)
-    stats, _ = _build_window_stats(cfg, False, 80, 80, mesh.n_faces)
-    wins = [
-        int(np.asarray(stats(tri_soa, jnp.asarray(params[k]))[0]))
-        for k in range(12)
-    ]
-    w_nadir, w_obl = max(wins[:8]), max(wins[8:])
-    if w_obl <= w_nadir:
-        pytest.skip(
-            f"oblique demand {w_obl} does not exceed nadir {w_nadir} at "
-            "this scale"
-        )
+    census = _build_census(census_config_of(cfg), False, 80, 80)
+    lvls = np.stack(
+        [np.asarray(census(tri_soa, jnp.asarray(params[k]))) for k in range(12)]
+    )
+    nadir = lvls[:8].max(axis=0)
+    assert (lvls[8:].max(axis=0) > nadir).any()
     between = dataclasses.replace(
-        cfg, fold_w_cap=8 * (-(-(w_nadir + 1) // 8))
+        cfg, caps=tuple(int(max(c, 1)) for c in nadir)
     )
     renders = [r[..., 0] for r in mesh.render_flat(cams)]
     seg_cams = SegmentorCameraSet(
@@ -266,8 +260,8 @@ def test_pipeline_benign_first_hostile_later(caplog):
         logging.WARNING, logger="geograypher_tpu.parallel.pipeline"
     ):
         frac_sums, views = aggregate_class_images_distributed(
-            mesh, seg_cams, n_classes=3, auto_size_fold=False,
-            integrity_check=False, config=between,
+            mesh, seg_cams, n_classes=3, plan_caps=False, config=between,
+            views_per_step=1,
         )
     resizes = [r for r in caplog.records if "re-censusing" in r.message]
     assert resizes, "hostile oblique step did not trigger the resize path"
@@ -279,70 +273,6 @@ def test_pipeline_benign_first_hostile_later(caplog):
     with np.errstate(invalid="ignore"):
         frac = frac_sums / views[:, None]
     assert np.allclose(frac[observed], avg[observed], atol=1e-5, equal_nan=True)
-
-
-def test_pipeline_warmup_guard_detects_corruption(monkeypatch):
-    """The warmup guard must fail when the grouped program's counts
-    disagree with the standalone single-view reference (simulated Mosaic
-    corruption)."""
-    import geograypher_tpu.parallel.pipeline as pipeline_mod
-    from geograypher_tpu.ops.rasterize import rasterize_and_count
-
-    mesh, cams, seg_cams, _ = _pipeline_scene(backend="pallas")
-
-    def inflated(*args, **kwargs):
-        # the "reference" computation claims 10x the pixels: as if the
-        # grouped program had silently dropped ~90% of its counts
-        return rasterize_and_count(*args, **kwargs) * 10.0
-
-    monkeypatch.setattr(pipeline_mod, "rasterize_and_count", inflated)
-    # the jitted single-view program is built once per static config and
-    # cached; drop it so the patched reference is traced
-    pipeline_mod._build_one_view_counts.cache_clear()
-    try:
-        with pytest.raises(RuntimeError, match="integrity check failed"):
-            pipeline_mod.aggregate_class_images_distributed(
-                mesh, seg_cams, n_classes=3
-            )
-    finally:
-        # don't leak the inflated traced program to later tests
-        pipeline_mod._build_one_view_counts.cache_clear()
-
-
-@pytest.mark.slow
-def test_distributed_pipeline_subtile_auto_size():
-    """The distributed pipeline census-sizes level-S chunk capacities from
-    a probe view when handed an UNsized subtile config, and matches the
-    plain tile-path result."""
-    import dataclasses
-
-    from geograypher_tpu.parallel.pipeline import (
-        aggregate_class_images_distributed,
-    )
-
-    mesh, cams, seg_cams, labels = _pipeline_scene()
-    base = RasterConfig(
-        caps=(64, 16, 16, 16), backend="pallas", bin_block=8,
-        l0_window=(5, 2),
-    )
-    s_cfg = dataclasses.replace(
-        base, subtile=(8, 16), s_window=(3, 2), s_block=4
-    )
-    fr_p, v_p = aggregate_class_images_distributed(
-        mesh, seg_cams, n_classes=3, config=base
-    )
-    fr_s, v_s = aggregate_class_images_distributed(
-        mesh, seg_cams, n_classes=3, config=s_cfg
-    )
-    assert np.allclose(v_p, v_s)
-    # knife-edge winner flips move a little fraction mass between
-    # adjacent faces (the labels were rendered with the plain config);
-    # the semantics must survive: same total mass, and the argmax
-    # recovers the ground-truth face labels
-    assert abs(fr_p.sum() - fr_s.sum()) <= 0.005 * fr_p.sum() + 1
-    observed = v_s > 0
-    pred = np.argmax(fr_s, axis=1)
-    assert (pred[observed] == labels[observed]).all()
 
 
 def test_rle_class_image_round_trip():
@@ -389,7 +319,7 @@ def test_pipeline_rle_transport_matches_dense():
         aggregate_class_images_distributed,
     )
 
-    mesh, cams, seg_cams, labels = _pipeline_scene(backend="pallas")
+    mesh, cams, seg_cams, labels = _pipeline_scene()
     fr_d, v_d = aggregate_class_images_distributed(
         mesh, seg_cams, n_classes=3, label_transport="dense",
     )
@@ -409,7 +339,7 @@ def test_pipeline_rle_overflow_falls_back_to_dense_step(caplog):
         aggregate_class_images_distributed,
     )
 
-    mesh, cams, seg_cams, labels = _pipeline_scene(backend="pallas", n_views=9)
+    mesh, cams, seg_cams, labels = _pipeline_scene(n_views=9)
     renders = [
         np.asarray(r[..., 0]) for r in mesh.render_flat(cams)
     ]
@@ -422,19 +352,19 @@ def test_pipeline_rle_overflow_falls_back_to_dense_step(caplog):
         return np.nan_to_num(renders[i], nan=-1).astype(np.int32)
 
     # views_per_step=1 -> 8-view steps: the noisy view 8 lands in the
-    # SECOND step, beyond the first-step capacity probe.  The legacy
-    # (auto_size_fold=False) path keeps identity view order — the planned
-    # path may reorder view 8 into the probed first step, which defeats
-    # this test's premise (the fallback itself is transport-layer code
-    # shared by both paths).
+    # SECOND step, beyond the first-step capacity probe.  The unplanned
+    # (plan_caps=False) path keeps identity view order — the planned path
+    # may reorder view 8 into the probed first step, which defeats this
+    # test's premise (the fallback itself is transport-layer code shared
+    # by both paths).
     fr_d, v_d = aggregate_class_images_distributed(
         mesh, cams, n_classes=3, class_image_provider=provider,
-        label_transport="dense", views_per_step=1, auto_size_fold=False,
+        label_transport="dense", views_per_step=1, plan_caps=False,
     )
     with caplog.at_level(_logging.WARNING, logger="geograypher_tpu.parallel.pipeline"):
         fr_r, v_r = aggregate_class_images_distributed(
             mesh, cams, n_classes=3, class_image_provider=provider,
-            label_transport="rle", views_per_step=1, auto_size_fold=False,
+            label_transport="rle", views_per_step=1, plan_caps=False,
         )
     assert any("RLE capacity" in r.message for r in caplog.records)
     assert (v_d == v_r).all()
